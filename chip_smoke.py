@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's main path once at its real size — the active Rijke tube
-at 7,259 DOF, through ``discretize`` and the fused slab-direct ``mslp`` on
-``cuda`` — after building the block-Thomas kernel (K3) from
-``wavesandeigenvalues_jl_tpu_torch/csrc`` and holding it against its plain
-PyTorch version.  Every phase prints one line and any failure exits
-non-zero.  The second-to-last line is the kernels' JSON record, the last
-line the device record:
+Builds the port's three kernels from ``wavesandeigenvalues_jl_tpu_torch/
+csrc`` (one ``nvcc`` per source, started together), holds each against its
+plain PyTorch version on the card, and drives the port's paths once at
+their real size, each with the launch counters set to 0 just before it:
+
+* the slab local eigensolve: ``mslp`` on the 7,259-DOF active Rijke tube
+  through the slab engine and the block-Thomas kernel K3;
+* path A, the dense local eigensolve: ``mslp`` on the 1,369-DOF active
+  Rijke tube through ``FusedPencilSolver`` and the dense GMRES kernel K2;
+* path B, the operator apply Y = L(ω)·X on the 7,259-DOF family and a
+  128-column panel through the BSR SpMM kernel K1, at bs = 32, 64, 128.
+
+Every phase prints one line and any failure exits non-zero.  The
+second-to-last line is the kernels' JSON record, the last line the device
+record:
 
     python3 chip_smoke.py
 
@@ -25,12 +33,28 @@ import torch
 Z0 = 340 * 2 * np.pi
 #: JAX host mslp (complex128 sparse LU) on the 7,259-DOF active family
 OMEGA_7259 = 1086.2565809909638 + 375.8712163601356j
+#: JAX host mslp on the 1,369-DOF active family (n_rings=3, nz 17 + 17)
+OMEGA_1369 = 1075.8988207005789 + 376.3799204921555j
 #: the tolerance of the JAX package's tests/test_fused_slab.py:47
 OMEGA_RTOL = 1e-8
 #: K3 against its plain version: float32 sums in another order over 2m steps
 K3_RTOL = 1e-5
 #: (sides, m, s) of the 7,259-DOF slice and of the 437-DOF test family
 K3_SHAPES = [(2, 60, 256), (2, 13, 128)]
+#: K2 against its plain version on the JAX test problem (float32 sums in
+#: another order) and that test's residual bar (test_pallas_gmres.py:49)
+K2_RTOL, K2_RES = 1e-5, 5e-6
+#: K2 against its plain version at the main-path shape: 80 Arnoldi steps
+#: of float32 sums in another order on a penalty-scaled operator
+K2_MAIN_RTOL = 1e-4
+#: operator apply against the complex128 host CSR product, per entry
+#: relative to (|A|·|X|): complex64 data and sums
+K1_RTOL = 1e-5
+OMEGA_APPLY = 2 * np.pi * 300.0
+K1_BLOCK_SIZES = (32, 64, 128)
+#: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def fail(msg):
@@ -41,6 +65,14 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the float32 operations over the non-tensor fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device():
@@ -63,13 +95,23 @@ def phase_device():
 
 
 def phase_build():
-    from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import build
+    """One nvcc per kernel source, all started together, then load each."""
+    import importlib
+
+    from wavesandeigenvalues_jl_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    info = build()
-    ptxas = " ".join(ln.strip() for ln in info["log"].splitlines()
-                     if "registers" in ln or "spill" in ln)
-    print(f"build: K3 {info['path']} nvcc {info['seconds']:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s | {ptxas}", flush=True)
+    info = cuda_build.compile_all()
+    wall = time.perf_counter() - t0
+    for name in cuda_build.KERNELS:
+        importlib.import_module(
+            f"wavesandeigenvalues_jl_tpu_torch.ops.{name}").build()
+    for name, rec in info.items():
+        ptxas = " ".join(ln.strip() for ln in rec["log"].splitlines()
+                         if "registers" in ln or "spill" in ln)
+        print(f"build: {name} {rec['path']} nvcc {rec['seconds']:.2f} s | "
+              f"{ptxas}", flush=True)
+    print(f"build: {len(info)} kernels in {wall:.2f} s of wall, loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _median_ms(fn, reps=20, warmup=3):
@@ -88,7 +130,22 @@ def _median_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def phase_compare():
+def reset_counts():
+    from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
+                                                      slab_thomas)
+    for fn in (slab_thomas, dense_gmres, bsr_spmm):
+        fn.launches = 0
+        fn.twin_calls = 0
+
+
+def read_counts():
+    from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
+                                                      slab_thomas)
+    return {fn.__name__: (fn.launches, fn.twin_calls)
+            for fn in (slab_thomas, dense_gmres, bsr_spmm)}
+
+
+def phase_compare_k3():
     """K3 against slab_thomas_ref on the card, at the slice's shapes."""
     from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (
         slab_thomas, slab_thomas_ref)
@@ -110,81 +167,306 @@ def phase_compare():
         check(bool(torch.isfinite(x).all()), f"K3 {shp}: non-finite output")
         ms = _median_ms(lambda: slab_thomas(st, b))
         plain_ms = _median_ms(lambda: slab_thomas_ref(st, b))
+        # stream read once, bt read once, x written once; 8 flops per
+        # complex multiply-add of the 2m [1,s]x[s,s] products
+        bound_ms, bound_by = bound(
+            8 * (st.numel() + 2 * b.numel()), 8 * sides * 2 * m * s * s)
         gbs = 2 * 2 * m * s * s * 8 / (ms * 1e-3) / 1e9
         print(f"K3 (sides, m, s)=({sides}, {m}, {s}): max abs err {err:.3e} "
               f"rel {rel:.3e} (tol {K3_RTOL:.0e}) | kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s of stream), plain {plain_ms:.4f} ms",
-              flush=True)
+              f"({gbs:.1f} GB/s of stream), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
+              "computes the block recursion", flush=True)
         check(rel <= K3_RTOL, f"K3 disagrees with its plain version: {rel}")
-        out[(sides, m, s)] = {"max_abs_err": err, "max_rel_err": rel,
-                              "ms": ms, "plain_ms": plain_ms}
+        out[(sides, m, s)] = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None}
     return out
 
 
-def phase_main_path():
-    """rijke_mesh → discretize → mslp on cuda at 7,259 DOF."""
-    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
-        active_rijke_family
+def _first_dense_step(L):
+    """P [2, N, N] and the preconditioned rhs [2, N] of the first K2 launch
+    of the dense mslp from Z0 (σ = 0, v = w = ones)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
+        FusedPencilSolver
+    solver = FusedPencilSolver(L, "cuda")
+    c, _ = solver.coefficients(complex(Z0))
+    solver.refresh_bj(c, 0.0)
+    ct = torch.from_numpy(c).cuda()
+    _, g = solver.solve_data(ct, torch.zeros((), dtype=torch.complex128,
+                                             device="cuda"))
+    ones = torch.ones(2, solver.n, dtype=torch.complex64, device="cuda")
+    b = solver._spmv(solver.mdat2.to(torch.complex64), ones)
+    return solver.operators(g), solver.preconditioned(b)
+
+
+def _gmres_flops(S, N, m, cycles):
+    """float32 operations of GMRES(m): m + 1 matvecs a cycle (the restart
+    residual included), CGS2 dots and updates, norms and x += V y."""
+    per = ((m + 1) * 8 * N * N + 32 * N * m * (m + 1) // 2
+           + (m + 1) * 4 * N + 8 * N * (m + 1))
+    return S * cycles * per
+
+
+def phase_compare_k2(L1369):
+    """K2 against dense_gmres_ref on the card, with torch.linalg.solve as
+    the library yardstick."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (
+        dense_gmres, dense_gmres_ref)
+    from wavesandeigenvalues_jl_tpu_torch.ops.gmres import gmres_test_problem
+    out = {}
+    P, b, Gs, b_host = gmres_test_problem(256)
+    cases = [((2, 256, 30, 2), torch.from_numpy(P).cuda(),
+              torch.from_numpy(b).cuda())]
+    P1, b1 = _first_dense_step(L1369)
+    cases.append(((2, P1.shape[1], 80, 1), P1, b1))
+    for (S, N, m, cycles), P, b in cases:
+        x = dense_gmres(P, b, m, cycles)
+        ref = dense_gmres_ref(P, b, m, cycles)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(x).all()), f"K2 {N}: non-finite output")
+        err = (x - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        # preconditioned residuals ‖P x − b‖/‖b‖ of kernel and plain
+        res = [((P @ y.unsqueeze(-1)).squeeze(-1) - b).norm(dim=-1)
+               .div(b.norm(dim=-1)).max().item() for y in (x, ref)]
+        ms = _median_ms(lambda: dense_gmres(P, b, m, cycles))
+        plain_ms = _median_ms(lambda: dense_gmres_ref(P, b, m, cycles),
+                              reps=3, warmup=1)
+        # the yardstick solves the same systems with the padding rows of
+        # P (all zero, with zero rhs) given a unit diagonal, since
+        # torch.linalg.solve refuses a singular matrix
+        Pl = P.clone()
+        dead = Pl.abs().sum(-1) == 0
+        Pl.diagonal(dim1=-2, dim2=-1)[dead] = 1
+        library_ms = _median_ms(lambda: torch.linalg.solve(Pl, b))
+        bound_ms, bound_by = bound(8 * (P.numel() + 2 * b.numel()),
+                                   _gmres_flops(S, N, m, cycles))
+        line = (f"K2 (sides, N, m, cycles)=({S}, {N}, {m}, {cycles}): max "
+                f"abs err {err:.3e} rel {rel:.3e} | residual ‖Px−b‖/‖b‖ "
+                f"kernel {res[0]:.3e} plain {res[1]:.3e} | kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, torch.linalg.solve "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if cycles == 2:
+            xs = x.cpu().numpy().astype(np.complex128)
+            true = [np.linalg.norm(Gs[s] @ xs[s] - b_host)
+                    / np.linalg.norm(b_host) for s in range(2)]
+            line += (f" | true residuals {true[0]:.3e} {true[1]:.3e} (tol "
+                     f"{K2_RES:.0e})")
+        print(line, flush=True)
+        tol = K2_RTOL if cycles == 2 else K2_MAIN_RTOL
+        check(rel <= tol, f"K2 disagrees with its plain version at N={N}: "
+              f"{rel:.3e} > {tol:.0e}")
+        if cycles == 2:
+            check(max(true) <= K2_RES, f"K2 residual {max(true):.3e}")
+        out[(S, N, m, cycles)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+    return out
+
+
+def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
+    """Drive mslp on the card with the counters set to 0 just before it;
+    print its line, check it, and return the counts read just after."""
     from wavesandeigenvalues_jl_tpu_torch.nlevp import mslp
-    from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import slab_thomas
     from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-    t0 = time.perf_counter()
-    L = active_rijke_family(n_rings=4, nz_cold=58, nz_hot=58)
-    t_disc = time.perf_counter() - t0
-    check(L.size == 7259, f"family dimension {L.size}, expected 7259")
-
+    check(L.size == expected_n, f"family dimension {L.size}, expected "
+          f"{expected_n}")
     timing.reset()
     torch.cuda.reset_peak_memory_stats()
-    slab_thomas.launches = 0
-    slab_thomas.twin_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
-    sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device="cuda")
+    sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, twin = slab_thomas.launches, slab_thomas.twin_calls
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     rep = timing.report()
 
     om = sol.params[sol.eigval]
-    rel = abs(om - OMEGA_7259) / abs(OMEGA_7259)
+    rel = abs(om - omega_ref) / abs(omega_ref)
     solver = L._fused_solver[1]
-    steps = rep.get("fused_local.device_step", {"calls": 0, "total_s": 0.0})
-    polish = rep.get("fused_local.polish_step", {"calls": 0, "total_s": 0.0})
-    setup = rep.get("fused_local.setup", {"total_s": 0.0})
-    print(f"main path: n={L.size} m={solver.m} s={solver.s} | discretize "
-          f"{t_disc:.2f} s | mslp wall {wall:.3f} s (setup "
-          f"{setup['total_s']:.3f} s, {steps['calls']} device steps "
-          f"{steps['total_s']:.3f} s, {polish['calls']} polish steps "
-          f"{polish['total_s']:.3f} s) | iterations {n_it} flag {flag} | "
-          f"omega {om!r} rel err {rel:.3e} (tol {OMEGA_RTOL:.0e}) | K3 "
-          f"launches {launches} twin calls {twin} | peak device memory "
+    none = {"calls": 0, "total_s": 0.0}
+    steps = rep.get("fused_local.device_step", none)
+    polish = rep.get("fused_local.polish_step", none)
+    setup = rep.get("fused_local.setup", none)
+    print(f"{label}: n={L.size} {type(solver).__name__} | mslp wall "
+          f"{wall:.3f} s (setup {setup['total_s']:.3f} s, {steps['calls']} "
+          f"device steps {steps['total_s']:.3f} s, {polish['calls']} polish "
+          f"steps {polish['total_s']:.3f} s) | iterations {n_it} flag {flag} "
+          f"| omega {om!r} rel err {rel:.3e} (tol {OMEGA_RTOL:.0e}) | "
+          f"launches, plain calls {counts} | peak device memory "
           f"{peak / 2**20:.1f} MiB", flush=True)
-    check(flag == 0, f"mslp flag {flag}")
-    check(rel <= OMEGA_RTOL, f"omega off by {rel:.3e} relative")
-    check(launches > 0, "the main path never launched K3")
-    check(twin == 0, f"the plain K3 ran {twin} times on the main path")
+    check(isinstance(solver, solver_cls),
+          f"{label}: solver {type(solver).__name__}")
+    check(flag == 0, f"{label}: mslp flag {flag}")
+    check(rel <= OMEGA_RTOL, f"{label}: omega off by {rel:.3e} relative")
+    launches, twin = counts[kernel]
+    check(launches > 0, f"{label} never launched {kernel}")
+    check(twin == 0, f"{label}: the plain {kernel} ran {twin} times")
     check(sol.v.shape == (L.size,) and np.isfinite(sol.v).all(),
-          "eigenvector not finite")
-    return launches
+          f"{label}: eigenvector not finite")
+    return counts
+
+
+def phase_slab_path(L7259):
+    """rijke_mesh → discretize → mslp on the card at 7,259 DOF (K3)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
+        FusedSlabPencilSolver
+    return _run_mslp(L7259, "slab path", 7259, OMEGA_7259,
+                     FusedSlabPencilSolver, "slab_thomas")
+
+
+def phase_dense_path(L1369):
+    """Path A: mslp on the card at 1,369 DOF through the dense engine (K2)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
+        FusedPencilSolver
+    return _run_mslp(L1369, "main path A (dense)", 1369, OMEGA_1369,
+                     FusedPencilSolver, "dense_gmres")
+
+
+def phase_apply_path(L7259):
+    """Path B: operator_apply on the card at 7,259 DOF through K1.  At each
+    block size a first call at Z0 builds the ordering and block structure;
+    the call at OMEGA_APPLY that follows reuses them and is checked
+    row-wise against the complex128 scipy CSR product."""
+    import scipy.sparse as sp
+
+    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (operator_apply,
+                                                                random_panel)
+    L7259.params[L7259.eigval] = OMEGA_APPLY
+    A = L7259.assemble({})
+    n = A.shape[0]
+    X = random_panel(n, 128)
+    As = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
+    Yref = As @ X.astype(np.complex128)
+    scale = abs(As) @ np.abs(X).astype(np.float64)
+    counts = {}
+    for bs in K1_BLOCK_SIZES:
+        reset_counts()
+        t0 = time.perf_counter()
+        operator_apply(L7259, Z0, X, bs=bs)
+        cold = time.perf_counter() - t0
+        cold_counts = read_counts()
+        plan = L7259._bsr_plan[2]
+        reset_counts()
+        t0 = time.perf_counter()
+        Y = operator_apply(L7259, OMEGA_APPLY, X, bs=bs)
+        wall = time.perf_counter() - t0
+        counts[bs] = read_counts()
+        check(L7259._bsr_plan[2] is plan,
+              f"operator_apply bs={bs}: the plan was rebuilt")
+        check(Y.shape == (n, 128) and np.isfinite(Y).all(),
+              f"operator_apply bs={bs}: bad output")
+        rel = float((np.abs(Y - Yref) / np.maximum(scale, 1e-300)).max())
+        print(f"main path B (apply) bs={bs}: n={n} r=128 | wall first call "
+              f"(builds the plan) {cold:.4f} s, next call {wall:.4f} s | max "
+              f"|Y−Y_ref|/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | launches, "
+              f"plain calls {counts[bs]} (first call {cold_counts})",
+              flush=True)
+        check(rel <= K1_RTOL, f"operator_apply bs={bs} off by {rel:.3e}")
+        for c in (cold_counts, counts[bs]):
+            launches, twin = c["bsr_spmm"]
+            check(launches == 1 and twin == 0, f"operator_apply bs={bs}: "
+                  f"K1 launches {launches}, plain {twin}")
+    return counts, A
+
+
+def phase_compare_k1(A):
+    """K1 against bsr_spmm_ref on the reordered 7,259-DOF operator at each
+    block size, with torch.sparse.mm of the CSR operator as yardstick."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm,
+                                                                bsr_spmm,
+                                                                bsr_spmm_ref,
+                                                                random_panel)
+    from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
+    from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
+                                                              permute_csr)
+    Ar = permute_csr(A, cuthill_mckee(A))
+    X = random_panel(A.shape[0], 128)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(Ar.indptr), torch.from_numpy(Ar.indices.astype(
+            np.int64)), torch.from_numpy(Ar.data.astype(np.complex64)),
+        size=Ar.shape).cuda()
+    Xd = torch.from_numpy(X).cuda()
+    try:
+        library_ms = _median_ms(lambda: torch.sparse.mm(csr, Xd))
+        library = f"torch.sparse.mm {library_ms:.4f} ms"
+    except RuntimeError as e:           # the yardstick only, not the port
+        library_ms = None
+        library = f"torch.sparse.mm refused: {str(e).splitlines()[0]}"
+    out = {}
+    for bs in K1_BLOCK_SIZES:
+        bsr = BsrOperator.from_csr(Ar, bs=bs)
+        op = BsrSpmm(bsr, "cuda")
+        Xp = op.panel(X)
+        Y = bsr_spmm(op.blocks, op.block_cols, Xp)
+        ref = bsr_spmm_ref(op.blocks, op.block_cols, Xp)
+        scale = bsr_spmm_ref(op.blocks.abs().to(torch.complex64),
+                             op.block_cols, Xp.abs().to(torch.complex64)).real
+        torch.cuda.synchronize()
+        err = (Y - ref).abs().max().item()
+        rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+        ms = _median_ms(lambda: bsr_spmm(op.blocks, op.block_cols, Xp))
+        plain_ms = _median_ms(lambda: bsr_spmm_ref(op.blocks, op.block_cols,
+                                                   Xp))
+        # blocks, block columns and X read once, Y written once; the
+        # operations the product needs: 8 per nonzero entry and column
+        nbytes = (8 * (op.blocks.numel() + 2 * Xp.numel())
+                  + 4 * op.block_cols.numel())
+        bound_ms, bound_by = bound(nbytes, op.flops)
+        print(f"K1 bs={bs}: {op.nbr} block rows x {op.maxb} slots, "
+              f"{op.nnz_blocks} blocks, {op.nnz} nonzeros, fill "
+              f"{bsr.fill_ratio:.4f} | max abs err {err:.3e}, max "
+              f"err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, {library} | bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{op.flops / 1e9:.4f} GFLOP needed) | padded work "
+              f"{op.padded_flops / 1e9:.2f} GFLOP, "
+              f"{op.padded_flops / ms * 1e-9:.2f} padded TFLOP/s", flush=True)
+        check(rel <= K1_RTOL, f"K1 bs={bs} disagrees with its plain "
+              f"version: {rel:.3e}")
+        out[bs] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+    return out
 
 
 def main():
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_family
     phase_device()
     phase_build()
-    k3 = phase_compare()
-    launches = phase_main_path()
-    main_shape = k3[K3_SHAPES[0]]
-    print(json.dumps({"kernels": [{
-        "name": "slab_thomas",
-        "route": "cuda",
-        "source": "wavesandeigenvalues_jl_tpu_torch/csrc/slab_thomas.cu",
-        "replaces": "wavesandeigenvalues_jl_tpu/ops/pallas_thomas.py:49",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}), flush=True)
+    k3 = phase_compare_k3()
+
+    t0 = time.perf_counter()
+    L7259 = active_rijke_family(n_rings=4, nz_cold=58, nz_hot=58)
+    L1369 = active_rijke_family(n_rings=3, nz_cold=17, nz_hot=17)
+    print(f"discretize: n={L7259.size} and n={L1369.size} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    k2 = phase_compare_k2(L1369)
+    slab = phase_slab_path(L7259)
+    dense = phase_dense_path(L1369)
+    apply_counts, A = phase_apply_path(L7259)
+    k1 = phase_compare_k1(A)
+
+    rows = [
+        ("slab_thomas", "pallas_thomas.py:49", k3[K3_SHAPES[0]],
+         slab["slab_thomas"][0]),
+        ("dense_gmres", "pallas_gmres.py:50", k2[(2, 1408, 80, 1)],
+         dense["dense_gmres"][0]),
+        ("bsr_spmm", "pallas_spmv.py:94", k1[128],
+         apply_counts[128]["bsr_spmm"][0]),
+    ]
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda",
+        source=f"wavesandeigenvalues_jl_tpu_torch/csrc/{name}.cu",
+        replaces=f"wavesandeigenvalues_jl_tpu/ops/{where}",
+        launches=launches, **rec) for name, where, rec, launches in rows]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,150 @@
+"""The port's operator apply (ops/reorder, ops/device.BsrOperator,
+ops/bsr_spmm: kernel K1) against the JAX package on the 437-DOF active
+Rijke operator, on the CPU, where the K1 wrapper runs its plain PyTorch
+version."""
+import numpy as np
+import pytest
+import torch
+
+import wavesandeigenvalues_jl_tpu.native as native_jax
+from wavesandeigenvalues_jl_tpu.ops.device import BsrOperator as BsrJax
+from wavesandeigenvalues_jl_tpu.ops.pallas_spmv import (PallasBsrSpmm,
+                                                        bsr_spmm_xla)
+from wavesandeigenvalues_jl_tpu.ops.reorder import bandwidth as bandwidth_jax
+from wavesandeigenvalues_jl_tpu.ops.reorder import \
+    cuthill_mckee as cuthill_mckee_jax
+from wavesandeigenvalues_jl_tpu.ops.reorder import \
+    permute_csr as permute_csr_jax
+from wavesandeigenvalues_jl_tpu.ops.sparse import CSR as CSRJax
+from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
+from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm, bsr_spmm,
+                                                            bsr_spmm_ref,
+                                                            operator_apply,
+                                                            random_panel)
+from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
+from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (bandwidth,
+                                                          cuthill_mckee,
+                                                          permute_csr)
+
+torch.set_num_threads(2)
+
+OMEGA = 2 * np.pi * 300.0
+
+
+@pytest.fixture(scope="module")
+def operator():
+    """(port CSR, the same CSR in the JAX package's container) of the
+    437-DOF family at ω = 2π·300."""
+    L = active_rijke_family()
+    L.params[L.eigval] = OMEGA
+    A = L.assemble({})
+    return A, CSRJax(A.indptr, A.indices, A.data, A.shape)
+
+
+def _rowwise(Y, Yref, A, X):
+    """max over entries of |Y − Y_ref| / (|A|·|X|): the penalty rows
+    (Y = 1e15 admittance) would swamp a global norm."""
+    scale = np.abs(A.to_dense()) @ np.abs(X.astype(np.complex128))
+    return float((np.abs(Y - Yref) / np.maximum(scale, 1e-300)).max())
+
+
+def test_cuthill_mckee_equals_jax_numpy_path(operator, monkeypatch):
+    """Same permutation as the JAX numpy/deque path (its native C++ BFS
+    switched off), both orders, and the same bandwidths."""
+    A, Aj = operator
+    monkeypatch.setattr(native_jax, "rcm", lambda indptr, indices: None)
+    for reverse in (True, False):
+        perm = cuthill_mckee(A, reverse=reverse)
+        np.testing.assert_array_equal(perm,
+                                      cuthill_mckee_jax(Aj, reverse=reverse))
+    Ar, Arj = permute_csr(A, perm), permute_csr_jax(Aj, perm)
+    np.testing.assert_array_equal(Ar.indptr, Arj.indptr)
+    np.testing.assert_array_equal(Ar.indices, Arj.indices)
+    np.testing.assert_array_equal(Ar.data, Arj.data)
+    assert bandwidth(A) == bandwidth_jax(Aj)
+    assert bandwidth(Ar) == bandwidth_jax(Arj) < bandwidth(A)
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_bsr_from_csr_equals_jax(operator, bs):
+    A, Aj = operator
+    perm = cuthill_mckee(A)
+    b, bj = (BsrOperator.from_csr(permute_csr(A, perm), bs=bs),
+             BsrJax.from_csr(permute_csr_jax(Aj, perm), bs=bs))
+    np.testing.assert_array_equal(b.blocks, bj.blocks)
+    np.testing.assert_array_equal(b.block_cols, bj.block_cols)
+    np.testing.assert_array_equal(b.block_mask, bj.block_mask)
+    assert (b.bs, b.n, b.fill_ratio) == (bj.bs, bj.n, bj.fill_ratio)
+    x = random_panel(A.shape[0], 1, seed=bs)[:, 0].astype(np.complex128)
+    np.testing.assert_array_equal(b.matvec_reference(x),
+                                  bj.matvec_reference(x))
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_ref_matches_jax_xla_and_pallas(operator, bs):
+    """bsr_spmm_ref against bsr_spmm_xla (r = 128), and at bs = 32 also
+    against the Pallas kernel in interpret mode (r = 8), row-wise to 1e-6
+    (complex64 sums in another order)."""
+    A, Aj = operator
+    perm = cuthill_mckee(A)
+    Ar = permute_csr(A, perm)
+    b = BsrOperator.from_csr(Ar, bs=bs)
+    bj = BsrJax.from_csr(permute_csr_jax(Aj, perm), bs=bs)
+    blocks = torch.from_numpy(b.blocks.astype(np.complex64))
+    cols = torch.from_numpy(b.block_cols)
+    n = A.shape[0]
+    for r, jax_apply in [(128, bsr_spmm_xla(bj))] + (
+            [(8, PallasBsrSpmm(bj, nrhs=8, interpret=True))] if bs == 32
+            else []):
+        X = random_panel(n, r, seed=r)
+        Xp = np.zeros((b.n, r), np.complex64)
+        Xp[:n] = X
+        Y = bsr_spmm_ref(blocks, cols, torch.from_numpy(Xp).view(-1, bs, r))
+        Y = Y.reshape(-1, r)[:n].numpy()
+        assert _rowwise(Y, np.asarray(jax_apply(X)), Ar, X) <= 1e-6
+
+
+def test_wrapper_on_cpu_counts_twin_calls(operator):
+    A, _ = operator
+    op = BsrSpmm(BsrOperator.from_csr(A, bs=64), "cpu", nrhs=16)
+    launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
+    X = random_panel(A.shape[0], 16)
+    Y = op(X)
+    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches, calls + 1)
+    assert Y.shape == X.shape and Y.dtype == np.complex64
+    with pytest.raises(TypeError):
+        bsr_spmm(op.blocks.to(torch.complex128), op.block_cols,
+                 op.panel(X))
+    with pytest.raises(TypeError):
+        bsr_spmm(op.blocks, op.block_cols.long(), op.panel(X))
+    with pytest.raises(ValueError):
+        bsr_spmm(op.blocks, op.block_cols, op.panel(X)[:, :32])
+
+
+@pytest.mark.parametrize("bs", [32, 128])
+def test_operator_apply_matches_host_csr(operator, bs):
+    """The entry point on the CPU: Y = L(ω)·X in the original ordering,
+    row-wise within 1e-6 of the complex128 host CSR product."""
+    A, _ = operator
+    L = active_rijke_family()
+    X = random_panel(A.shape[0], 128, seed=7)
+    Y = operator_apply(L, OMEGA, X, bs=bs, device="cpu")
+    assert Y.shape == X.shape and Y.dtype == np.complex64
+    assert _rowwise(Y, A @ X.astype(np.complex128), A, X) <= 1e-6
+
+
+def test_operator_apply_reuses_plan(operator):
+    """The ordering and block structure are built once per family, bs and
+    panel width: a second call at another z reuses them, writes the new
+    values and still agrees with the host CSR product row-wise to 1e-6; a
+    new bs builds a new plan."""
+    A, _ = operator
+    L = active_rijke_family()
+    X = random_panel(A.shape[0], 32, seed=3)
+    operator_apply(L, 340 * 2 * np.pi, X, bs=64, device="cpu")
+    plan = L._bsr_plan[2]
+    Y = operator_apply(L, OMEGA, X, bs=64, device="cpu")
+    assert L._bsr_plan[2] is plan
+    assert _rowwise(Y, A @ X.astype(np.complex128), A, X) <= 1e-6
+    operator_apply(L, OMEGA, X, bs=32, device="cpu")
+    assert L._bsr_plan[2] is not plan

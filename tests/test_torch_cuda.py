@@ -10,8 +10,20 @@ import torch
 
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
 from wavesandeigenvalues_jl_tpu_torch.nlevp import mslp
+from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
+    FusedPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
+from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm, bsr_spmm,
+                                                            bsr_spmm_ref,
+                                                            operator_apply,
+                                                            random_panel)
+from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (dense_gmres,
+                                                               dense_gmres_ref)
+from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
+from wavesandeigenvalues_jl_tpu_torch.ops.gmres import gmres_test_problem
+from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
+                                                          permute_csr)
 from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (slab_thomas,
                                                                slab_thomas_ref)
 
@@ -71,7 +83,9 @@ def test_step_on_card_matches_cpu(cuda):
 
 
 def test_mslp_on_card(cuda):
+    """The slab engine forced at n = 437 (below FUSED_MAX_DIM)."""
     L = active_rijke_family()
+    L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, cuda))
     launches, calls = slab_thomas.launches, slab_thomas.twin_calls
     sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
     om = sol.params[sol.eigval]
@@ -79,3 +93,78 @@ def test_mslp_on_card(cuda):
     assert abs(om - OMEGA_437) <= 1e-8 * abs(OMEGA_437)
     assert slab_thomas.launches > launches
     assert slab_thomas.twin_calls == calls
+
+
+@pytest.mark.parametrize("N,m,cycles", [(256, 30, 2), (512, 80, 1)])
+def test_dense_gmres_matches_twin(cuda, N, m, cycles):
+    """K2 against its plain version on the card, to 1e-5 relative (float32
+    sums in another order); at (256, 30, 2) each side's true residual is
+    ≤ 5e-6, the bar of the JAX package's test_pallas_gmres.py:49."""
+    P, b0, Gs, b = gmres_test_problem(N)
+    Pt, bt = torch.from_numpy(P).to(cuda), torch.from_numpy(b0).to(cuda)
+    launches, calls = dense_gmres.launches, dense_gmres.twin_calls
+    x = dense_gmres(Pt, bt, m, cycles)
+    torch.cuda.synchronize()
+    assert (dense_gmres.launches, dense_gmres.twin_calls) == \
+        (launches + 1, calls)
+    ref = dense_gmres_ref(Pt, bt, m, cycles)
+    rel = ((x - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-5
+    if cycles == 2:
+        xs = x.cpu().numpy()
+        for s in range(2):
+            res = np.linalg.norm(Gs[s] @ xs[s] - b) / np.linalg.norm(b)
+            assert res <= 5e-6
+
+
+def test_dense_mslp_on_card(cuda):
+    """The dense engine at n = 437: flag 0, OMEGA_437 to 1e-8, through K2
+    and never its plain version."""
+    L = active_rijke_family()
+    launches, calls = dense_gmres.launches, dense_gmres.twin_calls
+    sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11)
+    om = sol.params[sol.eigval]
+    assert isinstance(L._fused_solver[1], FusedPencilSolver)
+    assert flag == 0
+    assert abs(om - OMEGA_437) <= 1e-8 * abs(OMEGA_437)
+    assert dense_gmres.launches > launches
+    assert dense_gmres.twin_calls == calls
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_bsr_spmm_matches_twin(cuda, bs):
+    """K1 against its plain version on the card, on the reordered 437-DOF
+    operator at ω = 2π·300 with a 128-column panel, row-wise to 1e-6."""
+    L = active_rijke_family()
+    L.params[L.eigval] = 2 * np.pi * 300.0
+    A = L.assemble({})
+    Ar = permute_csr(A, cuthill_mckee(A))
+    op = BsrSpmm(BsrOperator.from_csr(Ar, bs=bs), cuda)
+    Xp = op.panel(random_panel(A.shape[0], 128, seed=bs))
+    launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
+    Y = bsr_spmm(op.blocks, op.block_cols, Xp)
+    torch.cuda.synchronize()
+    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches + 1, calls)
+    ref = bsr_spmm_ref(op.blocks, op.block_cols, Xp)
+    scale = bsr_spmm_ref(op.blocks.abs().to(torch.complex64), op.block_cols,
+                         Xp.abs().to(torch.complex64)).real
+    rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+    assert rel <= 1e-6
+
+
+def test_operator_apply_on_card(cuda):
+    """The entry point with its default device: one K1 launch and no plain
+    call per apply, the plan reused across z, and Y row-wise within 1e-5 of
+    the complex128 host CSR product."""
+    L = active_rijke_family()
+    X = random_panel(L.size, 128, seed=5)
+    operator_apply(L, Z0, X)
+    plan = L._bsr_plan[2]
+    launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
+    Y = operator_apply(L, 2 * np.pi * 300.0, X)
+    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches + 1, calls)
+    assert L._bsr_plan[2] is plan
+    A = L.assemble({})
+    scale = np.abs(A.to_dense()) @ np.abs(X.astype(np.complex128))
+    err = np.abs(Y - A @ X.astype(np.complex128)) / np.maximum(scale, 1e-300)
+    assert err.max() <= 1e-5

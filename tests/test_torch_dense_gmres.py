@@ -1,0 +1,86 @@
+"""Kernel K2 of the port (ops/dense_gmres.py) against the JAX package's
+Pallas dense GMRES (interpret mode) on the CPU, where the wrapper runs its
+plain PyTorch version; and the block-Jacobi inverses it is fed with."""
+import numpy as np
+import pytest
+import torch
+
+from wavesandeigenvalues_jl_tpu.ops.gmres import \
+    BatchedBlockDiagInv as BatchedBlockDiagInvJax
+from wavesandeigenvalues_jl_tpu.ops.pallas_gmres import build_dense_gmres
+from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
+from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (dense_gmres,
+                                                               dense_gmres_ref)
+from wavesandeigenvalues_jl_tpu_torch.ops.gmres import (BatchedBlockDiagInv,
+                                                        gmres_test_problem)
+
+torch.set_num_threads(2)
+
+
+def test_ref_matches_pallas_interpret():
+    """(sides, N, m, cycles) = (2, 256, 30, 2): x agrees with the Pallas
+    kernel to 1e-5 relative (float32 sums in another order), and each
+    side's true residual ‖G x − b‖/‖b‖ is ≤ 5e-6 (test_pallas_gmres.py:49)."""
+    N, m, cycles = 256, 30, 2
+    P, b0, Gs, b = gmres_test_problem(N)
+    f = build_dense_gmres(N, m, cycles=cycles, sides=2, interpret=True)
+    xr, xi = f(np.ascontiguousarray(P.real), np.ascontiguousarray(P.imag),
+               np.ascontiguousarray(b0.real), np.ascontiguousarray(b0.imag))
+    xj = np.asarray(xr) + 1j * np.asarray(xi)
+    xt = dense_gmres_ref(torch.from_numpy(P), torch.from_numpy(b0), m,
+                         cycles).numpy()
+    for s in range(2):
+        rel = np.linalg.norm(xt[s] - xj[s]) / np.linalg.norm(xj[s])
+        assert rel <= 1e-5, f"side {s}: port vs JAX {rel:.3e}"
+        res = np.linalg.norm(Gs[s] @ xt[s] - b) / np.linalg.norm(b)
+        assert res <= 5e-6, f"side {s}: relres {res:.3e}"
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    P, b0, _, _ = gmres_test_problem(128, seed=1)
+    P, b0 = torch.from_numpy(P), torch.from_numpy(b0)
+    launches, calls = dense_gmres.launches, dense_gmres.twin_calls
+    x = dense_gmres(P, b0, 10, 1)
+    assert (dense_gmres.launches, dense_gmres.twin_calls) == \
+        (launches, calls + 1)
+    torch.testing.assert_close(x, dense_gmres_ref(P, b0, 10, 1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "square", "lane",
+                                  "contiguous", "m"])
+def test_wrapper_rejects_bad_input(case):
+    P = torch.zeros(2, 128, 128, dtype=torch.complex64)
+    b = torch.zeros(2, 128, dtype=torch.complex64)
+    m = 10
+    if case == "dtype":
+        P = P.to(torch.complex128)
+    elif case == "rank":
+        b = b[0]
+    elif case == "square":
+        P = torch.zeros(2, 128, 256, dtype=torch.complex64)
+    elif case == "lane":
+        P, b = P[:, :100, :100].contiguous(), b[:, :100].contiguous()
+    elif case == "contiguous":
+        P = torch.zeros(2, 128, 256, dtype=torch.complex64)[:, :, ::2]
+    elif case == "m":
+        m = 0
+    with pytest.raises((TypeError, ValueError)):
+        dense_gmres(P, b, m, 1)
+
+
+def test_batched_block_diag_inv_equals_jax():
+    """Bit for bit on the 437-DOF union pattern at N = 512, both sides."""
+    L = active_rijke_family()
+    S = L._stack()
+    rows = np.asarray(S.row_ids(), np.int64)
+    cols = np.asarray(S.indices, np.int64)
+    L.params["ω"] = 340 * 2 * np.pi
+    data = L.coefficients({}) @ S.values
+    perm = np.lexsort((rows, cols))
+    for r, c, d in ((rows, cols, data), (cols[perm], rows[perm],
+                                         np.conj(data[perm]))):
+        port = BatchedBlockDiagInv(r, c, 512, 128)
+        ref = BatchedBlockDiagInvJax(r, c, 512, 128)
+        assert port.unique == ref.unique
+        np.testing.assert_array_equal(port.inv(d[None]), ref.inv(d[None]))

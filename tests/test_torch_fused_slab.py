@@ -55,19 +55,25 @@ def test_one_step_matches_jax():
 
 
 def test_mslp_matches_jax_host():
-    """The slice end to end: port mslp (device engine on the CPU) against
-    JAX host mslp, both flag 0, |Δω| ≤ 1e-8·|ω| (test_fused_slab.py:47)."""
+    """The slab engine end to end: port mslp (device engine on the CPU)
+    against JAX host mslp, both flag 0, |Δω| ≤ 1e-8·|ω|
+    (test_fused_slab.py:47).  n = 437 is below FUSED_MAX_DIM, so the slab
+    engine is forced through the family's solver cache, as the JAX test
+    does (test_fused_slab.py:37-38)."""
     sol_h, _, flag_h = mslp_jax(_jax_family(), Z0, maxiter=30, tol=1e-11)
     om_h = sol_h.params[sol_h.eigval]
     L = active_rijke_family()
+    L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, "cpu"))
+    calls = slab_thomas.twin_calls
     sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device="cpu")
+    assert slab_thomas.twin_calls > calls
     om = sol.params[sol.eigval]
     assert flag_h == 0 and flag == 0
     assert abs(om - om_h) <= 1e-8 * abs(om_h)
     assert abs(om - OMEGA_437) <= 1e-8 * abs(OMEGA_437)
     assert 0 < n_it < 30
     assert np.isfinite(sol.v).all() and np.isfinite(sol.v_adj).all()
-    # the device loop's solver is cached on the family for the next call
+    # the forced solver is the one the device loop used
     assert isinstance(L._fused_solver[1], FusedSlabPencilSolver)
 
 

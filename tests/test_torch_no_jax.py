@@ -15,6 +15,15 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.models",
     "wavesandeigenvalues_jl_tpu_torch.nlevp",
     "wavesandeigenvalues_jl_tpu_torch.ops",
+    "wavesandeigenvalues_jl_tpu_torch.ops.cuda_build",
+    "wavesandeigenvalues_jl_tpu_torch.ops.gmres",
+    "wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres",
+    "wavesandeigenvalues_jl_tpu_torch.ops.device",
+    "wavesandeigenvalues_jl_tpu_torch.ops.reorder",
+    "wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.pencil",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab",
     "chip_smoke",
 ]
 

@@ -1,30 +1,123 @@
-"""Fused-device local NLEVP solver — the Newton loop.
+"""Fused-device local NLEVP solvers — the dense engine and the Newton loop.
 
-Counterpart of ``try_fused_local`` in the JAX package's
-``nlevp/fused_local.py``.  The host evaluates coefficients in complex128,
-the device runs one fused step per Newton iteration
-(:class:`.fused_slab.FusedSlabPencilSolver`), and a complex128 host polish
-(sparse LU + shift-invert Arnoldi) supplies the last digits.
+Counterpart of the JAX package's ``nlevp/fused_local.py``.  The host
+evaluates coefficients in complex128, the device runs one fused step per
+Newton iteration, and a complex128 host polish (sparse LU + shift-invert
+Arnoldi) supplies the last digits.
 
-Routing: the JAX package sends n ≤ 1,400 to its dense engine (Pallas
-GMRES, kernel K2) and larger n to the slab engine.  The dense engine is
-not ported yet (ROADMAP.md Queue 1), so the port sends EVERY dimension to
-the slab engine.
+Routing, as in the JAX package: n ≤ ``FUSED_MAX_DIM`` = 1,400 goes to the
+dense engine :class:`FusedPencilSolver`, whose inner solves are one launch
+each of the dense GMRES kernel K2 (:func:`..ops.dense_gmres.dense_gmres`);
+larger n to the slab engine :class:`.fused_slab.FusedSlabPencilSolver`
+(kernel K3).  Both share the Newton step of :class:`.pencil.PencilSolver`.
 
-No failure is hidden: a device-engine error raises, a non-finite dz raises
-with its iteration number, and the polish lets scipy errors propagate.
+No failure is hidden: where the JAX function returns ``None`` and lets
+its host engine run, the port raises — an engine error propagates, a
+non-finite dz raises with its iteration number, and the polish lets scipy
+errors propagate.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.dense_gmres import dense_gmres
+from ..ops.gmres import BatchedBlockDiagInv
 from ..ops.linsolve import factorize
 from ..utils.config import CDTYPE, DEVICE_CDTYPE
 from ..utils.timing import phase
 from .eigs import eigs_shift_invert
 from .family import OperatorFamily, Solution
 from .fused_slab import FusedSlabPencilSolver
+from .pencil import REFINE_SWEEPS, PencilSolver
+
+#: inner-solve controls of the dense engine
+GMRES_M = 80   # GMRES(40) stagnates on the penalty-BC Helmholtz operators
+GMRES_CYCLES = 1
+BJ_BS = 128           # block-Jacobi block size = the padded-N granularity
+#: largest family dimension routed to the dense engine
+FUSED_MAX_DIM = 1400
+
+
+class FusedPencilSolver(PencilSolver):
+    """Dense fused Newton state for one family of n ≤ ``FUSED_MAX_DIM``.
+
+    Per step (:meth:`solver`): the complex128 solve data of both sides is
+    cast to complex64, scattered into dense [N, N] operators (N = n padded
+    to a multiple of 128) and premultiplied by the block-Jacobi inverses
+    (a batched ``torch.matmul``: P = D⁻¹G); every solve of both sides is
+    D⁻¹b and ONE launch of K2, GMRES(``GMRES_M``) with ``GMRES_CYCLES``
+    cycles.  The block-Jacobi inverses are host complex128 LAPACK
+    inversions cast to complex64, refreshed by :meth:`refresh_bj` on the
+    protocol of :func:`try_fused_local`."""
+
+    def __init__(self, L: OperatorFamily, device):
+        super().__init__(L)
+        n = self.n
+        if n > FUSED_MAX_DIM:
+            raise ValueError(
+                f"dimension {n} above FUSED_MAX_DIM={FUSED_MAX_DIM}")
+        self.N = N = ((n + BJ_BS - 1) // BJ_BS) * BJ_BS
+        # block-Jacobi structure at the PADDED size (pad blocks → identity)
+        (rows, cols), (rows_h, cols_h) = self.pattern
+        self.bj = BatchedBlockDiagInv(rows, cols, N, BJ_BS)
+        self.bjH = BatchedBlockDiagInv(rows_h, cols_h, N, BJ_BS)
+        dest = np.stack([(side * N + r_) * N + c_
+                         for side, (r_, c_) in enumerate(self.pattern)])
+        self.register_buffer("dense_dest", torch.from_numpy(dest),
+                             persistent=False)
+        self._dj = None
+        self.to(device)
+
+    def refresh_bj(self, c: np.ndarray, sigma: complex):
+        """Block-Jacobi inverses of both sides' A + σM at coefficients c,
+        host complex128, kept on the device as complex64 [2, N/128, 128,
+        128]."""
+        data = c @ self._vals_host + sigma * self._m_data
+        dj = self.bj.inv(data[None])[0]
+        djH = self.bjH.inv(np.conj(data[self._perm])[None])[0]
+        self._dj = torch.from_numpy(np.stack([dj, djH]).astype(
+            np.complex64)).to(self.device)
+
+    @property
+    def stale(self) -> bool:
+        return self._dj is None
+
+    def operators(self, g: torch.Tensor) -> torch.Tensor:
+        """Both sides' complex128 solve data g [2, nnz] -> the dense
+        pre-preconditioned operators P = D⁻¹G, complex64 [2, N, N]."""
+        N = self.N
+        G = g.new_zeros(2 * N * N, dtype=DEVICE_CDTYPE)
+        G.index_put_((self.dense_dest.view(-1),),
+                     g.to(DEVICE_CDTYPE).view(-1))
+        return (self._dj @ G.view(2, N // BJ_BS, BJ_BS, N)).view(2, N, N)
+
+    def preconditioned(self, b: torch.Tensor) -> torch.Tensor:
+        """Both sides' complex64 [2, n] rhs -> D⁻¹b padded to [2, N]."""
+        N = self.N
+        bp = b.new_zeros(2, N)
+        bp[:, :self.n] = b
+        return (self._dj @ bp.view(2, N // BJ_BS, BJ_BS, 1)).view(2, N)
+
+    def solver(self, g: torch.Tensor):
+        P = self.operators(g)
+
+        def solve_both(b):
+            """Both sides' complex64 [2, n] rhs -> solutions; one K2
+            launch."""
+            x = dense_gmres(P, self.preconditioned(b), GMRES_M, GMRES_CYCLES)
+            return x[:, :self.n]
+
+        return solve_both
+
+
+def _resolve(device) -> torch.device:
+    """The device as a solver reports it (``cuda`` -> ``cuda:<current>``);
+    raises from torch where there is no such device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
@@ -37,16 +130,17 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     from .solvers import (ITSOL_CONVERGED, ITSOL_IMPOSSIBLE, ITSOL_ISNAN,
                           ITSOL_MAXITER, ITSOL_SLOW_CONVERGENCE)
 
-    device = torch.device(device)
+    device = _resolve(device)
     cached = getattr(L, "_fused_solver", None)
     if (cached is not None and cached[0] is L._stack()
             and cached[1].device == device):
         solver = cached[1]
     else:
-        # every dimension goes to the slab engine until the dense engine
-        # (kernel K2) is ported
         with phase("fused_local.setup"):
-            solver = FusedSlabPencilSolver(L, device)
+            if L._stack().shape[0] <= FUSED_MAX_DIM:
+                solver = FusedPencilSolver(L, device)
+            else:
+                solver = FusedSlabPencilSolver(L, device)
         L._fused_solver = (L._stack(), solver)
 
     z = complex(z) * scale
@@ -81,7 +175,8 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         if output:
             print(f"{n_it}\t{abs(lam):.3e}\t{abs(z - z0):.3e}\t{z / scale}")
         with phase("fused_local.device_step"):
-            dz, lam, carries, _res = solver.step(z, carries, sigma)
+            dz, lam, carries, res = solver.step(z, carries, sigma,
+                                                refresh=(n_it == 0))
         if not np.isfinite(dz):
             raise FloatingPointError(
                 f"fused device step {n_it}: non-finite dz = {dz}")
@@ -91,6 +186,9 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
             # nonsingular at the Newton fixed point; λ itself is
             # σ-independent.
             sigma = 0.1 * abs(lam)
+            solver.refresh_bj(solver.coefficients(z)[0], sigma)
+        elif res.max() > 1e-3:               # preconditioner went stale
+            solver.refresh_bj(solver.coefficients(z)[0], sigma)
         z0 = z
         z = z + relax * dz
         n_it += 1
@@ -170,4 +268,5 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     return Solution(L.params, v, v_adj, eig), n_it, flag
 
 
-__all__ = ["try_fused_local"]
+__all__ = ["FusedPencilSolver", "try_fused_local", "GMRES_M", "GMRES_CYCLES",
+           "REFINE_SWEEPS", "BJ_BS", "FUSED_MAX_DIM"]

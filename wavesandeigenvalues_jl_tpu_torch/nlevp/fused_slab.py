@@ -1,13 +1,11 @@
 """Fused-device local NLEVP solver — the slab (block-tridiagonal) DIRECT
 variant, in PyTorch.
 
-Counterpart of the JAX package's ``nlevp/fused_slab.py``.  Per Newton step
-the host evaluates the family's coefficient vectors c(z), ∂_z c(z) in
-complex128 and the device runs one step (:meth:`FusedSlabPencilSolver.
-forward`):
+Counterpart of the JAX package's ``nlevp/fused_slab.py``, for families
+above ``FUSED_MAX_DIM`` (:mod:`.fused_local`).  The Newton step is
+:class:`.pencil.PencilSolver`'s; this engine's inner solve
+(:meth:`FusedSlabPencilSolver.solver`) is:
 
-* complex128 assembly ``c @ vals`` of the operator and of its adjoint on
-  the union pattern, plus the σ-regularisation σ·M;
 * complex128 row equilibration per side (ELL gather + row max) BEFORE any
   cast to complex64 — the Y≈1e15 penalty rows otherwise destroy the
   float32 factorization;
@@ -18,14 +16,10 @@ forward`):
   produces the per-slab inverses Dt_i⁻¹ and the coupling stream
   Wᵀ_i = (Dt_i⁻¹L_i)ᵀ, Cᵀ_i = (Dt_i⁻¹U_i)ᵀ;
 * every inner solve is Dt⁻¹b followed by ONE launch of the block-Thomas
-  kernel (:func:`..ops.slab_thomas.slab_thomas`, kernel K3);
-* complex128 residual refinement and the two-sided complex128 Rayleigh
-  quotients, which give λ, λ′ and the Newton update dz = −λ/λ′.
+  kernel (:func:`..ops.slab_thomas.slab_thomas`, kernel K3).
 
 The precision split is the JAX package's: complex64 factorization and
-stream, complex128 refinement and quotients.  The device loop lands in the
-Newton basin; the host complex128 polish in :mod:`.fused_local` supplies
-the last digits.
+stream, complex128 refinement and quotients.
 
 Reference counterpart: Householder.jl:70-192 — ARPACK shift-invert over
 one UMFPACK factorization per outer iteration.
@@ -34,58 +28,25 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..ops.slab_solve import SlabPartition
 from ..ops.slab_thomas import slab_thomas
-from ..utils.config import CDTYPE, DEVICE_CDTYPE, TORCH_CDTYPE
-from .family import AUX_OPERATOR, OperatorFamily
+from ..utils.config import DEVICE_CDTYPE
+from .family import OperatorFamily
+from .pencil import PencilSolver, _pad0
 
 #: cap on the streamed W/C blocks (device bytes, both sides): the
 #: factorization and the stream must coexist with the family stacks
 SLAB_FUSED_MAX_STREAM = 4.0e9
 
-REFINE_SWEEPS = 1
-
-
-def _ell_ids(rows_sorted, n: int, nnz: int):
-    """Padded-ELL entry-id map [n, w] (sentinel = nnz) for per-row
-    reductions over data laid out in row-sorted order."""
-    counts = np.bincount(rows_sorted, minlength=n)
-    w = max(int(counts.max()), 1)
-    ids = np.full((n, w), nnz, np.int64)
-    starts = np.zeros(n + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    slot = np.arange(len(rows_sorted)) - starts[rows_sorted]
-    ids[rows_sorted, slot] = np.arange(len(rows_sorted))
-    return ids
-
-
-def _pad0(d: torch.Tensor) -> torch.Tensor:
-    """Append one zero along the last axis (the ELL sentinel slot)."""
-    return torch.cat([d, d.new_zeros(d.shape[:-1] + (1,))], dim=-1)
-
-
-class FusedSlabPencilSolver(nn.Module):
-    """Device-resident slab-direct Newton state for one family.  Index maps
-    and value stacks are buffers, so ``.to(device)`` moves them; one Newton
-    step is :meth:`forward`."""
+class FusedSlabPencilSolver(PencilSolver):
+    """Slab-direct Newton state for one family (see the module
+    docstring)."""
 
     def __init__(self, L: OperatorFamily, device):
-        super().__init__()
-        L.ensure_aux()
+        super().__init__(L)
+        n = self.n
         S = L._stack()
-        self.L = L
-        self.n = n = int(S.shape[0])
-        self.eig, self.aux = L.eigval, L.auxval
-        rows = np.asarray(S.row_ids(), np.int64)
-        cols = np.asarray(S.indices, np.int64)
-        nnz = len(cols)
-        vals = np.asarray(S.values)                        # [K, nnz] c128
-        self.K = vals.shape[0]
-        self.k_aux = next(i for i, t in enumerate(L.terms)
-                          if t.operator == AUX_OPERATOR)
-
         part = SlabPartition(S.indptr, S.indices, n)
         self.part = part
         m = part.m
@@ -97,15 +58,9 @@ class FusedSlabPencilSolver(nn.Module):
                 f"slab stream {stream_bytes / 1e9:.1f} GB above "
                 f"SLAB_FUSED_MAX_STREAM for n={n}")
 
-        # adjoint pattern (Aᴴ): conj data on (cols, rows), row-sorted
-        perm = np.lexsort((rows, cols))
-        rows_h = cols[perm]
-        cols_h = rows[perm]
-        valsH = np.conj(vals[:, perm])
-
         # per-side flat destinations in the [2, m, 3, s, s] band panels
         dest = []
-        for side, (r_, c_) in enumerate(((rows, cols), (rows_h, cols_h))):
+        for side, (r_, c_) in enumerate(self.pattern):
             si, d, rl, cl = part.entry_destinations(r_, c_)
             dest.append(((((side * m + si) * 3 + d) * s + rl) * s + cl))
 
@@ -117,66 +72,13 @@ class FusedSlabPencilSolver(nn.Module):
             rmap[i, :len(rows_i)] = rows_i
         newidx = part.iperm
         src = part.slab_of_new[newidx] * s + part.loc_of_new[newidx]
-
-        e = np.zeros(self.K, np.complex128)
-        e[self.k_aux] = -1.0
-        mdat = e @ vals                                    # M = -coeff_aux
-        mdatH = np.conj(mdat[perm])
-
-        # ELL maps: entry ids per row (sentinel nnz) and their columns
-        ell = [_ell_ids(rows, n, nnz), _ell_ids(rows_h, n, nnz)]
-        w = max(a.shape[1] for a in ell)
-        ell2 = np.full((2, n, w), nnz, np.int64)
-        for side, a in enumerate(ell):
-            ell2[side, :, :a.shape[1]] = a
-        cell2 = np.stack([np.append(cols, 0)[ell2[0]],
-                          np.append(cols_h, 0)[ell2[1]]])
         pad = (np.arange(s)[None, :] >= part.sizes[:, None])
 
-        for name, arr in (("vals2", np.stack([vals, valsH])),
-                          ("mdat2", np.stack([mdat, mdatH])),
-                          ("rows2", np.stack([rows, rows_h])),
-                          ("dest2", np.stack(dest)),
-                          ("ell2", ell2), ("cell2", cell2),
-                          ("rmap", rmap), ("src", src),
-                          ("pad", pad.astype(np.complex64))):
+        for name, arr in (("dest2", np.stack(dest)), ("rmap", rmap),
+                          ("src", src), ("pad", pad.astype(np.complex64))):
             self.register_buffer(name, torch.from_numpy(arr),
                                  persistent=False)
         self.to(device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.vals2.device
-
-    # -- host-side per-step scalar work -----------------------------------
-    def coefficients(self, z: complex):
-        L = self.L
-        L.params[self.eig] = z
-        L.params[self.aux] = 0.0
-        saved_mode = L.mode
-        L.mode = "householder"
-        try:
-            c = L.coefficients({})
-            dc = L.coefficients({self.eig: 1})
-        finally:
-            L.mode = saved_mode
-        c[self.k_aux] = 0.0
-        dc[self.k_aux] = 0.0
-        return c, dc
-
-    # -- device step ---------------------------------------------------------
-    def _ell(self, data: torch.Tensor) -> torch.Tensor:
-        """[2, nnz+1] per-side padded data -> [2, n, w] ELL gather."""
-        return data.gather(1, self.ell2.view(2, -1)).view(self.ell2.shape)
-
-    def _spmv(self, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Both sides' y = A x: data [2, nnz], x [2, n] -> [2, n]."""
-        xg = x.gather(1, self.cell2.view(2, -1)).view(self.cell2.shape)
-        return (self._ell(_pad0(data)) * xg).sum(-1)
-
-    def _spmv0(self, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Direct side only: data [nnz], x [n] -> [n]."""
-        return (_pad0(data)[self.ell2[0]] * x[self.cell2[0]]).sum(-1)
 
     def _factor(self, blk: torch.Tensor):
         """Block-Thomas factorization of the [2, m, 3, s, s] band panels:
@@ -198,18 +100,10 @@ class FusedSlabPencilSolver(nn.Module):
             stream[:, 2 * m - 1 - i] = C.transpose(1, 2)
         return DT, stream
 
-    def forward(self, c, dc, sigma, carries):
-        """One Newton step.  c, dc [K] complex128 coefficient vectors, sigma
-        a complex128 scalar tensor, carries [2, n] complex64 (direct and
-        adjoint vector).  Returns (scal [3] = (dz, λ, λ′) complex128,
-        res [2] float64 refined relative residuals, carries [2, n])."""
-        n, m, s = self.n, self.m, self.s
-        vals2, mdat2 = self.vals2, self.mdat2
-        a = c @ vals2[0]                                   # A data
-        g = torch.stack([a + sigma * mdat2[0],             # A + σM
-                         c.conj() @ vals2[1]               # Aᴴ + σ̄Mᴴ
-                         + sigma.conj() * mdat2[1]])
-
+    def solver(self, g: torch.Tensor):
+        """Row-equilibrate, scatter and factor g; each solve of both sides
+        is Dt⁻¹b and one K3 launch."""
+        m, s = self.m, self.s
         # per-side row equilibration in complex128, before the cast
         rm = self._ell(_pad0(g.abs())).amax(-1)            # [2, n]
         scale = 1.0 / torch.where(rm == 0, 1.0, rm)
@@ -227,60 +121,7 @@ class FusedSlabPencilSolver(nn.Module):
             x = slab_thomas(stream, bt)
             return x.reshape(2, m * s)[:, self.src]
 
-        mdat32 = mdat2.to(DEVICE_CDTYPE)
-
-        def refined_inverse_step(v, sweeps):
-            """One inverse-iteration step of both sides from complex64 v
-            [2, n]; complex128 solution, refined ``sweeps`` times, and the
-            relative residuals of the refined solution."""
-            b = self._spmv(mdat32, v)
-            x = solve_both(b).to(TORCH_CDTYPE)
-            b = b.to(TORCH_CDTYPE)
-            for _ in range(sweeps):
-                r = (b - self._spmv(g, x)).to(DEVICE_CDTYPE)
-                x = x + solve_both(r).to(TORCH_CDTYPE)
-            r = b - self._spmv(g, x)
-            num = (r.real ** 2 + r.imag ** 2).sum(-1)
-            den = (b.real ** 2 + b.imag ** 2).sum(-1).clamp_min(1e-300)
-            return x, torch.sqrt(num / den)
-
-        def normalized(x):
-            nrm = (x.real ** 2 + x.imag ** 2).sum(-1).sqrt()
-            return x / nrm.clamp_min(1e-300)[:, None]
-
-        # two inverse-iteration steps: a plain amplification step, then a
-        # refined one feeding the Rayleigh quotients
-        x, _ = refined_inverse_step(carries, sweeps=0)
-        x, res = refined_inverse_step(normalized(x).to(DEVICE_CDTYPE),
-                                      sweeps=REFINE_SWEEPS)
-        x = normalized(x)
-        v, w = x[0], x[1]
-
-        # two-sided Rayleigh quotients on the PURE A (σ-independent)
-        wc = w.conj()
-        num = (wc * self._spmv0(a, v)).sum()               # wᴴ A v
-        dnum = (wc * self._spmv0(dc @ vals2[0], v)).sum()  # wᴴ A′ v
-        den = (wc * self._spmv0(mdat2[0], v)).sum()        # wᴴ M v
-        lam = num / den
-        lamd = dnum / den
-        dz = -lam / lamd                     # Newton/[1/0]-Padé update
-        return torch.stack([dz, lam, lamd]), res, x.to(DEVICE_CDTYPE)
-
-    def step(self, z: complex, carries, sigma: complex):
-        """Host side of one Newton step: coefficients in, ONE device fetch
-        of (dz, λ, residuals) out."""
-        c, dc = self.coefficients(z)
-        dev = self.device
-        scal, res, carries = self(
-            torch.from_numpy(c).to(dev), torch.from_numpy(dc).to(dev),
-            torch.tensor(complex(sigma), dtype=TORCH_CDTYPE, device=dev),
-            carries)
-        out = torch.cat([scal, res.to(TORCH_CDTYPE)]).cpu().numpy()
-        return complex(out[0]), complex(out[1]), carries, out[3:].real
-
-    def fetch_vectors(self, carries):
-        x = carries.cpu().numpy().astype(CDTYPE)
-        return x[0], x[1]
+        return solve_both
 
 
 __all__ = ["FusedSlabPencilSolver", "SLAB_FUSED_MAX_STREAM"]

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``nlevp/solvers.py`` for the fused device
 route: ``mslp`` and ``householder`` with ``order=1, nev=1,
-num_order<=1`` run :func:`.fused_local.try_fused_local` on the device the
-caller names.  Other settings (higher orders, several eigenvalues, the
+num_order<=1`` run :func:`.fused_local.try_fused_local` on ``device``,
+the card (``"cuda"``) unless the caller asks for the CPU.  It routes
+n ≤ 1,400 to the dense engine (kernel K2) and larger n to the slab engine
+(kernel K3), as the JAX package does.  Other settings (higher orders, several eigenvalues, the
 host engine with perturbation theory) and the other solvers raise
 ``NotImplementedError``; they are ROADMAP.md Queue 1 work.
 
@@ -59,7 +61,7 @@ def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
 
 def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
                 lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None,
-                output=False, *, device):
+                output=False, *, device="cuda"):
     """Generalized Rayleigh-quotient / Householder iteration
     (Householder.jl:70-192) on ``device``."""
     return _local_engine(L, z, maxiter=maxiter, tol=tol, relax=relax,
@@ -70,7 +72,7 @@ def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
 
 def mslp(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
          lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None, num_order=1,
-         scale=1, output=False, *, device):
+         scale=1, output=False, *, device="cuda"):
     """Method of successive linear problems (iterative_solvers.jl:93-252)
     on ``device``."""
     return _local_engine(L, z, maxiter=maxiter, tol=tol, relax=relax,

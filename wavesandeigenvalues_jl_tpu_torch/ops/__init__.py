@@ -1,5 +1,10 @@
+from .bsr_spmm import BsrSpmm, bsr_spmm, bsr_spmm_ref, operator_apply
+from .dense_gmres import dense_gmres, dense_gmres_ref
+from .device import BsrOperator
+from .gmres import BatchedBlockDiagInv
 from .linsolve import (DenseLU, Factorization, SingularMatrixError, SparseLU,
                        factorize)
+from .reorder import bandwidth, cuthill_mckee, permute_csr
 from .slab_solve import SlabPartition, bfs_levels
 from .slab_thomas import slab_thomas, slab_thomas_ref
 from .sparse import CSR, StackedOperator, coo_sum_duplicates, union_pattern
@@ -7,4 +12,7 @@ from .sparse import CSR, StackedOperator, coo_sum_duplicates, union_pattern
 __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
            "DenseLU", "SparseLU", "Factorization", "SingularMatrixError",
            "factorize", "SlabPartition", "bfs_levels", "slab_thomas",
-           "slab_thomas_ref"]
+           "slab_thomas_ref", "dense_gmres", "dense_gmres_ref",
+           "BatchedBlockDiagInv", "BsrOperator", "BsrSpmm", "bsr_spmm",
+           "bsr_spmm_ref", "operator_apply", "cuthill_mckee", "permute_csr",
+           "bandwidth"]

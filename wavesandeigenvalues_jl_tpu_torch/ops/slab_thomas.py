@@ -13,26 +13,16 @@ build_slab_thomas``.
   its launches (``slab_thomas.launches``) and its CPU calls
   (``slab_thomas.twin_calls``).
 * The kernel is compiled from the repository's source on first use with
-  ``nvcc`` into ``wavesandeigenvalues_jl_tpu_torch/_build/`` (keyed by a
-  hash of the source) and loaded with ctypes.
+  ``nvcc`` and loaded with ctypes (:mod:`.cuda_build`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "slab_thomas.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import cuda_build
 
 
 def slab_thomas_ref(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -55,44 +45,14 @@ def slab_thomas_ref(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 
 @functools.cache
 def build() -> dict:
-    """Compile ``csrc/slab_thomas.cu`` (once per source hash) and load it.
-
-    Returns {"lib", "path", "seconds", "log"}: the ctypes library, the
-    shared object, the compile seconds (0 when the build was already
-    there) and nvcc's ``-Xptxas -v`` report."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"slab_thomas_{digest}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        if CUDA_HOME is None:
-            raise RuntimeError("no CUDA toolkit found: nvcc is needed to "
-                               "build the slab_thomas kernel")
-        # build into a temp file first so concurrent processes never
-        # dlopen a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-               "-o", tmp, SOURCE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    lib.slab_thomas_c64.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
-    lib.slab_thomas_c64.restype = ctypes.c_int
-    lib.slab_thomas_error_string.argtypes = [ctypes.c_int]
-    lib.slab_thomas_error_string.restype = ctypes.c_char_p
-    return {"lib": lib, "path": path, "seconds": seconds, "log": log}
+    """Compile ``csrc/slab_thomas.cu`` (once per source hash) and load it:
+    {"lib", "path", "seconds", "log"} (see :func:`.cuda_build.load`)."""
+    info = cuda_build.load("slab_thomas")
+    fn = info["lib"].slab_thomas_c64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return info
 
 
 def _check(stream: torch.Tensor, bt: torch.Tensor):
@@ -128,9 +88,7 @@ def slab_thomas(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
         code = lib.slab_thomas_c64(
             stream.data_ptr(), bt.data_ptr(), x.data_ptr(), sides, m, s,
             torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError("slab_thomas launch failed: "
-                           + lib.slab_thomas_error_string(code).decode())
+    cuda_build.check(lib, "slab_thomas", code)
     slab_thomas.launches += 1
     return x
 
@@ -139,4 +97,4 @@ slab_thomas.launches = 0
 slab_thomas.twin_calls = 0
 
 
-__all__ = ["slab_thomas", "slab_thomas_ref", "build", "SOURCE", "BUILD_DIR"]
+__all__ = ["slab_thomas", "slab_thomas_ref", "build"]

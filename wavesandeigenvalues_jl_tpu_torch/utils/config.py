@@ -4,9 +4,10 @@ Two numeric regimes, as in the JAX package:
 
 * **reference precision** (numpy complex128) for the host orchestration:
   mesh, FEM tables, CSR, the coefficient algebra and the scipy polish;
-* **device precision** for the device step: complex64 for the slab
-  factorization and the block-Thomas kernel, complex128 for the residual
-  refinement and the Rayleigh quotients.
+* **device precision** for the device step: complex64 for the inner
+  solvers (the slab factorization and the block-Thomas kernel, the dense
+  GMRES kernel), complex128 for the residual refinement and the Rayleigh
+  quotients.
 
 Reduced-precision matrix passes broke GMRES orthogonality and the
 coefficient contractions in the JAX package, which forces full float32
