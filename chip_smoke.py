@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Builds the port's three kernels from ``wavesandeigenvalues_jl_tpu_torch/
+Builds the port's four kernels from ``wavesandeigenvalues_jl_tpu_torch/
 csrc`` (one ``nvcc`` per source, started together), holds each against its
 plain PyTorch version on the card, and drives the port's paths once at
 their real size, each with the launch counters set to 0 just before it:
@@ -11,7 +11,10 @@ their real size, each with the launch counters set to 0 just before it:
 * path A, the dense local eigensolve: ``mslp`` on the 1,369-DOF active
   Rijke tube through ``FusedPencilSolver`` and the dense GMRES kernel K2;
 * path B, the operator apply Y = L(ω)·X on the 7,259-DOF family and a
-  128-column panel through the BSR SpMM kernel K1, at bs = 32, 64, 128.
+  128-column panel through the BSR SpMM kernel K1, at bs = 32, 64, 128;
+* path C, the large-operator apply: ``operator_apply(kernel="window")`` on
+  the 57,210-DOF octosplit passive family and a 128-column panel through
+  the CSR SpMM kernel that stands for K4 and K5.
 
 Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -52,6 +55,16 @@ K2_MAIN_RTOL = 1e-4
 K1_RTOL = 1e-5
 OMEGA_APPLY = 2 * np.pi * 300.0
 K1_BLOCK_SIZES = (32, 64, 128)
+#: the JAX bench's large operator (BENCH_DETAIL.json "large_operator")
+LARGE_DIM, LARGE_NNZ = 57210, 819730
+#: the large apply against the complex128 host product, globally: the JAX
+#: bench's bar (bench.py:585)
+LARGE_GLOBAL_RTOL = 5e-5
+#: panel widths of the K4/K5 comparison: the main path's, and a small one
+K45_WIDTHS = (128, 16)
+#: chain(20) against the plain chain, globally: 20 applies of float32 sums
+#: in another order, each normalized
+CHAIN_M, CHAIN_RTOL = 20, 1e-5
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -130,19 +143,20 @@ def _median_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def reset_counts():
+def _wrappers():
     from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
-                                                      slab_thomas)
-    for fn in (slab_thomas, dense_gmres, bsr_spmm):
+                                                      slab_thomas, window_spmm)
+    return slab_thomas, dense_gmres, bsr_spmm, window_spmm
+
+
+def reset_counts():
+    for fn in _wrappers():
         fn.launches = 0
         fn.twin_calls = 0
 
 
 def read_counts():
-    from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
-                                                      slab_thomas)
-    return {fn.__name__: (fn.launches, fn.twin_calls)
-            for fn in (slab_thomas, dense_gmres, bsr_spmm)}
+    return {fn.__name__: (fn.launches, fn.twin_calls) for fn in _wrappers()}
 
 
 def phase_compare_k3():
@@ -434,9 +448,143 @@ def phase_compare_k1(A):
     return out
 
 
+def _rowwise_scipy(Y, As, X):
+    """(max |Y − Y_ref| / (|A|·|X|), ‖Y − Y_ref‖ / ‖Y_ref‖) against the
+    complex128 scipy product."""
+    Yref = As @ X.astype(np.complex128)
+    scale = abs(As) @ np.abs(X).astype(np.float64)
+    row = float((np.abs(Y - Yref) / np.maximum(scale, 1e-300)).max())
+    return row, float(np.linalg.norm(Y - Yref) / np.linalg.norm(Yref))
+
+
+def phase_large_path():
+    """Path C: the 57,210-DOF octosplit passive family (host) and
+    operator_apply(kernel="window") on the card.  A first call at Z0
+    builds the plan (Cuthill–McKee, the permuted structure and value stack
+    on the card); the call at OMEGA_APPLY that follows reuses it and is
+    checked against the complex128 scipy product."""
+    import scipy.sparse as sp
+
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        large_operator_family
+    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (operator_apply,
+                                                                random_panel)
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    L = large_operator_family()
+    family_s = time.perf_counter() - t0
+    L.params[L.eigval] = OMEGA_APPLY
+    A = L.assemble({})
+    n = A.shape[0]
+    check((n, A.nnz) == (LARGE_DIM, LARGE_NNZ),
+          f"large operator n={n} nnz={A.nnz}, expected {LARGE_DIM} and "
+          f"{LARGE_NNZ}")
+    X = random_panel(n, 128)
+    As = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
+
+    timing.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    operator_apply(L, Z0, X, kernel="window")
+    cold = time.perf_counter() - t0
+    cold_counts = read_counts()
+    rep = timing.report()
+    plan = L._window_plan[2]
+    reset_counts()
+    t0 = time.perf_counter()
+    Y = operator_apply(L, OMEGA_APPLY, X, kernel="window")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    check(L._window_plan[2] is plan, "operator_apply window: plan rebuilt")
+    check(Y.shape == (n, 128) and np.isfinite(Y).all(),
+          "operator_apply window: bad output")
+    row, glob = _rowwise_scipy(Y, As, X)
+    print(f"main path C (large apply): n={n} nnz={A.nnz} r=128 | mesh + "
+          f"octosplit + discretize {family_s:.2f} s | wall first call "
+          f"(builds the plan) {cold:.4f} s, of it Cuthill–McKee "
+          f"{rep['apply_plan.cuthill_mckee']['total_s']:.4f} s and "
+          f"permutation {rep['apply_plan.permute']['total_s']:.4f} s | next "
+          f"call {wall:.4f} s | max |Y−Y_ref|/(|A||X|) {row:.3e} (tol "
+          f"{K1_RTOL:.0e}), ‖Y−Y_ref‖/‖Y_ref‖ {glob:.3e} (tol "
+          f"{LARGE_GLOBAL_RTOL:.0e}) | launches, plain calls {counts} "
+          f"(first call {cold_counts})", flush=True)
+    check(row <= K1_RTOL, f"large apply row-wise error {row:.3e}")
+    check(glob < LARGE_GLOBAL_RTOL, f"large apply global error {glob:.3e}")
+    for c in (cold_counts, counts):
+        launches, twin = c["window_spmm"]
+        check(launches == 1 and twin == 0, f"large apply: window_spmm "
+              f"launches {launches}, plain {twin}")
+    return counts, L, plan
+
+
+def phase_compare_k45(L, plan):
+    """The CSR SpMM kernel (K4/K5) against window_spmm_ref on the card, on
+    the reordered 57,210-DOF operator at OMEGA_APPLY, with torch.sparse.mm
+    of the same CSR as yardstick; then chain(20) against the plain chain."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import random_panel
+    from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
+        WindowSpmm, window_spmm, window_spmm_ref)
+    L.params[L.eigval] = OMEGA_APPLY
+    indptr, cols = plan.op.indptr, plan.op.cols
+    vals = plan.family.data(L.coefficients()).to(torch.complex64)
+    n, nnz = indptr.numel() - 1, cols.numel()
+    csr = torch.sparse_csr_tensor(indptr.long(), cols.long(), vals,
+                                  size=(n, n))
+    out = {}
+    for r in K45_WIDTHS:
+        op = WindowSpmm(indptr.cpu().numpy(), cols.cpu().numpy(),
+                        vals.cpu().numpy(), (n, n), nrhs=r)
+        Xd = op.panel(random_panel(n, r, seed=r))
+        Y = window_spmm(indptr, cols, vals, Xd)
+        ref = window_spmm_ref(indptr, cols, vals, Xd)
+        scale = window_spmm_ref(indptr, cols, vals.abs().to(torch.complex64),
+                                Xd.abs().to(torch.complex64)).real
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(Y).all()), f"K4/K5 r={r}: non-finite")
+        err = (Y - ref).abs().max().item()
+        rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+        ms = _median_ms(lambda: window_spmm(indptr, cols, vals, Xd))
+        plain_ms = _median_ms(lambda: window_spmm_ref(indptr, cols, vals,
+                                                      Xd))
+        try:
+            library_ms = _median_ms(lambda: torch.sparse.mm(csr, Xd))
+            library = f"torch.sparse.mm {library_ms:.4f} ms"
+        except RuntimeError as e:       # the yardstick only, not the port
+            library_ms = None
+            library = f"torch.sparse.mm refused: {str(e).splitlines()[0]}"
+        bound_ms, bound_by = bound(op.stream_bytes, op.flops)
+        gbs = op.stream_bytes / (ms * 1e-3) / 1e9
+        print(f"K4/K5 (window_spmm) n={n} nnz={nnz} r={r}: max abs err "
+              f"{err:.3e}, max err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | "
+              f"kernel {ms:.4f} ms ({gbs:.1f} GB/s of "
+              f"{op.stream_bytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
+              f"{library} | bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{op.flops / 1e9:.4f} GFLOP)", flush=True)
+        check(rel <= K1_RTOL, f"K4/K5 r={r} disagrees with its plain "
+              f"version: {rel:.3e}")
+        out[r] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms}
+        if r == 128:
+            chain, plain_chain = op.chain(CHAIN_M), op.chain(
+                CHAIN_M, window_spmm_ref)
+            Yc, Yp = chain(Xd), plain_chain(Xd)
+            crel = ((Yc - Yp).norm() / Yp.norm()).item()
+            chain_ms = _median_ms(lambda: chain(Xd)) / CHAIN_M
+            print(f"K4/K5 chain({CHAIN_M}): {chain_ms:.4f} ms per apply "
+                  f"(apply + normalization) | against the plain chain "
+                  f"‖ΔY‖/‖Y‖ {crel:.3e} (tol {CHAIN_RTOL:.0e})", flush=True)
+            check(bool(torch.isfinite(Yc).all()) and crel <= CHAIN_RTOL,
+                  f"chain({CHAIN_M}) disagrees with the plain chain: {crel}")
+    return out
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     k3 = phase_compare_k3()
@@ -452,21 +600,32 @@ def main():
     dense = phase_dense_path(L1369)
     apply_counts, A = phase_apply_path(L7259)
     k1 = phase_compare_k1(A)
+    t0 = time.perf_counter()
+    large_counts, L57k, plan = phase_large_path()
+    k45 = phase_compare_k45(L57k, plan)
+    t_end = time.perf_counter()
+    print(f"path C phases: {t_end - t0:.2f} s of the run's "
+          f"{t_end - t_start:.2f} s", flush=True)
 
+    launches_c = large_counts["window_spmm"][0]
     rows = [
-        ("slab_thomas", "pallas_thomas.py:49", k3[K3_SHAPES[0]],
-         slab["slab_thomas"][0]),
-        ("dense_gmres", "pallas_gmres.py:50", k2[(2, 1408, 80, 1)],
-         dense["dense_gmres"][0]),
-        ("bsr_spmm", "pallas_spmv.py:94", k1[128],
+        ("slab_thomas", "slab_thomas", "pallas_thomas.py:49",
+         k3[K3_SHAPES[0]], slab["slab_thomas"][0]),
+        ("dense_gmres", "dense_gmres", "pallas_gmres.py:50",
+         k2[(2, 1408, 80, 1)], dense["dense_gmres"][0]),
+        ("bsr_spmm", "bsr_spmm", "pallas_spmv.py:94", k1[128],
          apply_counts[128]["bsr_spmm"][0]),
+        ("window_spmm/K4", "window_spmm", "window_spmm.py:162", k45[128],
+         launches_c),
+        ("window_spmm/K5", "window_spmm", "window_spmm2.py:136", k45[128],
+         launches_c),
     ]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda",
-        source=f"wavesandeigenvalues_jl_tpu_torch/csrc/{name}.cu",
+        source=f"wavesandeigenvalues_jl_tpu_torch/csrc/{src}.cu",
         replaces=f"wavesandeigenvalues_jl_tpu/ops/{where}",
-        launches=launches, **rec) for name, where, rec, launches in rows]}),
-        flush=True)
+        launches=launches, **rec)
+        for name, src, where, rec, launches in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,7 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.utils.config",
     "wavesandeigenvalues_jl_tpu_torch.utils.timing",
     "wavesandeigenvalues_jl_tpu_torch.mesh",
+    "wavesandeigenvalues_jl_tpu_torch.mesh.refine",
     "wavesandeigenvalues_jl_tpu_torch.fem",
     "wavesandeigenvalues_jl_tpu_torch.models",
     "wavesandeigenvalues_jl_tpu_torch.nlevp",
@@ -21,6 +22,7 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.ops.device",
     "wavesandeigenvalues_jl_tpu_torch.ops.reorder",
     "wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm",
+    "wavesandeigenvalues_jl_tpu_torch.ops.window_spmm",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.pencil",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab",

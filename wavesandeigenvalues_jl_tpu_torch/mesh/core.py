@@ -111,7 +111,68 @@ class Mesh:
                f"{', '.join(self.domains.keys())}")
         return txt
 
+    # -- construction helpers ----------------------------------------------
+    @classmethod
+    def from_raw(cls, points, lines, triangles, tetrahedra, domains,
+                 name="mesh", file="", scale=1.0):
+        """Dedup raw element lists and re-index domain references
+        (Mesh constructor, Meshutils.jl:92-165)."""
+        points = np.asarray(points, dtype=np.float64) * scale
+        lines = np.asarray(lines, dtype=np.int64).reshape(-1, 2)
+        triangles = np.asarray(triangles, dtype=np.int64).reshape(-1, 3)
+        tetrahedra = np.asarray(tetrahedra, dtype=np.int64).reshape(-1, 4)
+        ul, inv_l = unique_simplices(lines)
+        ut, inv_t = unique_simplices(triangles)
+        utt, inv_tt = unique_simplices(tetrahedra)
+        inverse = {1: inv_l, 2: inv_t, 3: inv_tt}
+        new_domains: Dict[str, Dict] = {}
+        for dom, dd in domains.items():
+            dim = int(dd["dimension"])
+            idx = np.asarray(dd["simplices"], dtype=np.int64)
+            if dim in inverse and len(idx):
+                idx = inverse[dim][idx]
+            new_domains[dom] = {"dimension": dim,
+                                "simplices": np.unique(idx)}
+        return cls(points, ul, ut, None, utt, new_domains, name=name, file=file)
+
     # -- topology -----------------------------------------------------------
+    def collect_lines(self):
+        """Populate ``lines`` with the unique edges of all tetrahedra —
+        the P2 edge-DOF index space (collect_lines!, Meshutils.jl:831-848).
+
+        Pre-existing line elements (e.g. gmsh curve groups) are kept and
+        merged; dimension-1 domain indices are remapped to the dedup'd
+        store."""
+        t = self.tetrahedra
+        edges = np.concatenate([t[:, [0, 1]], t[:, [0, 2]], t[:, [0, 3]],
+                                t[:, [1, 2]], t[:, [1, 3]], t[:, [2, 3]]])
+        if len(self.tetrahedra) == 0 and len(self.triangles) > 0:
+            tr = self.triangles
+            edges = np.concatenate([tr[:, [0, 1]], tr[:, [0, 2]],
+                                    tr[:, [1, 2]]])
+        n_old = len(self.lines)
+        if n_old > 0:
+            merged = np.concatenate([self.lines, edges])
+            uniq, inv = unique_simplices(merged)
+            if len(uniq) == n_old:
+                return self.lines  # already complete
+            self.lines = uniq
+            for dd in self.domains.values():
+                if dd["dimension"] == 1 and len(dd["simplices"]):
+                    dd["simplices"] = np.unique(
+                        inv[np.asarray(dd["simplices"], dtype=np.int64)])
+        else:
+            self.lines, _ = unique_simplices(np.sort(edges, axis=1))
+        return self.lines
+
+    def edge_indices(self, simplices_edges: np.ndarray) -> np.ndarray:
+        """Vectorized get_line_idx: indices of given edges in the edge store."""
+        self.collect_lines()
+        idx = find_simplices(self.lines, simplices_edges)
+        if np.any(idx < 0):
+            raise KeyError("edge not present in mesh.lines")
+        return idx
+
     def link_triangles_to_tetrahedra(self):
         """tri2tet adjacency: owning tetrahedron of each surface triangle
         (link_triangles_to_tetrahedra!, Meshutils.jl:516-548)."""

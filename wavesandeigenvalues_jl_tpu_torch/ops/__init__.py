@@ -1,13 +1,15 @@
 from .bsr_spmm import BsrSpmm, bsr_spmm, bsr_spmm_ref, operator_apply
 from .dense_gmres import dense_gmres, dense_gmres_ref
-from .device import BsrOperator
+from .device import BsrOperator, DeviceStackedOperator, EllOperator, spmv_ell
 from .gmres import BatchedBlockDiagInv
 from .linsolve import (DenseLU, Factorization, SingularMatrixError, SparseLU,
                        factorize)
 from .reorder import bandwidth, cuthill_mckee, permute_csr
 from .slab_solve import SlabPartition, bfs_levels
 from .slab_thomas import slab_thomas, slab_thomas_ref
-from .sparse import CSR, StackedOperator, coo_sum_duplicates, union_pattern
+from .sparse import (CSR, StackedOperator, coo_sum_duplicates, csr_to_ell,
+                     union_pattern)
+from .window_spmm import WindowSpmm, window_spmm, window_spmm_ref
 
 __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
            "DenseLU", "SparseLU", "Factorization", "SingularMatrixError",
@@ -15,4 +17,6 @@ __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
            "slab_thomas_ref", "dense_gmres", "dense_gmres_ref",
            "BatchedBlockDiagInv", "BsrOperator", "BsrSpmm", "bsr_spmm",
            "bsr_spmm_ref", "operator_apply", "cuthill_mckee", "permute_csr",
-           "bandwidth"]
+           "bandwidth", "csr_to_ell", "EllOperator", "spmv_ell",
+           "DeviceStackedOperator", "WindowSpmm", "window_spmm",
+           "window_spmm_ref"]

@@ -16,6 +16,9 @@ pallas_spmv.py :: _bsr_spmm_kernel``.
   counterpart of ``PallasBsrSpmm``); :func:`operator_apply` is the entry
   point: evaluate the family at z, write its values into the blocks of the
   cached Cuthill–McKee ordering (:class:`ApplyPlan`), apply to the panel.
+  With ``kernel="window"`` it goes instead through the CSR SpMM kernel of
+  :mod:`.window_spmm` (the large-operator form, K4/K5), evaluating the
+  family on the device (:class:`WindowPlan`).
 """
 from __future__ import annotations
 
@@ -26,10 +29,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import timing
 from . import cuda_build
-from .device import BsrOperator
+from .device import BsrOperator, DeviceStackedOperator
 from .reorder import cuthill_mckee, permute_csr
-from .sparse import CSR
+from .sparse import CSR, StackedOperator
+from .window_spmm import WindowSpmm, window_spmm
 
 #: block sizes the kernel is built for, and its panel-column tile
 BLOCK_SIZES = (32, 64, 128)
@@ -157,6 +162,22 @@ class BsrSpmm(nn.Module):
         return Y.reshape(-1, self.nrhs)[:n_logical].cpu().numpy()
 
 
+def _tagged_permutation(stack):
+    """(perm, Ar, src): the Cuthill–McKee permutation (new → old) of the
+    union pattern, the permuted pattern as a CSR whose data are the union
+    entries' indices + 1 (so any packing of it says where every entry
+    went; a padding stays 0), and ``src``, the union entry of each of Ar's
+    nonzeros."""
+    nnz = len(stack.indices)
+    tagged = CSR(stack.indptr, stack.indices,
+                 np.arange(1, nnz + 1, dtype=np.complex128), stack.shape)
+    with timing.phase("apply_plan.cuthill_mckee"):
+        perm = cuthill_mckee(tagged)
+    with timing.phase("apply_plan.permute"):
+        Ar = permute_csr(tagged, perm)
+    return perm, Ar, Ar.data.real.astype(np.int64) - 1
+
+
 class ApplyPlan:
     """What the apply of one family keeps between calls: the Cuthill–McKee
     permutation and BSR structure of its union pattern, which do not depend
@@ -164,13 +185,8 @@ class ApplyPlan:
     blocks.  :meth:`load` writes the values of L(z) into the blocks."""
 
     def __init__(self, stack, bs: int, device, nrhs: int):
-        # tag each union entry with its index + 1, so the packed blocks say
-        # where every entry went (the padding stays 0)
-        nnz = len(stack.indices)
-        tagged = CSR(stack.indptr, stack.indices,
-                     np.arange(1, nnz + 1, dtype=np.complex128), stack.shape)
-        self.perm = cuthill_mckee(tagged)
-        bsr = BsrOperator.from_csr(permute_csr(tagged, self.perm), bs=bs)
+        self.perm, Ar, _ = _tagged_permutation(stack)
+        bsr = BsrOperator.from_csr(Ar, bs=bs)
         flat = bsr.blocks.reshape(-1)
         dest = np.flatnonzero(flat)
         self.src = flat[dest].real.astype(np.int64) - 1
@@ -183,34 +199,80 @@ class ApplyPlan:
         vals = torch.from_numpy(data[self.src].astype(np.complex64))
         self.op.blocks.view(-1)[self.dest] = vals.to(self.op.blocks.device)
 
+    def __call__(self, L, X: np.ndarray) -> np.ndarray:
+        self.load(L.assemble({}).data)
+        Y = np.empty((L.size, X.shape[1]), np.complex64)
+        Y[self.perm] = self.op(X[self.perm])
+        return Y
 
-def _plan(L, bs: int, device, nrhs: int) -> ApplyPlan:
-    """The family's :class:`ApplyPlan`, cached on L while its union pattern
-    (``L._stack()``), bs, device and panel width stay the same."""
-    key = (bs, torch.device(device), nrhs)
-    cached = getattr(L, "_bsr_plan", None)
+
+class WindowPlan:
+    """What the window apply of one family keeps between calls: the
+    Cuthill–McKee permutation (and its inverse) on the device, the permuted
+    CSR structure there (:class:`.window_spmm.WindowSpmm`), and the
+    family's permuted value stack there in complex128
+    (:class:`.device.DeviceStackedOperator`).  A call evaluates the family
+    on the device as ``coeffs @ values``, casts to complex64 and launches
+    the kernel once; the host only moves the panel in and out."""
+
+    def __init__(self, stack, device, nrhs: int):
+        perm, Ar, src = _tagged_permutation(stack)
+        self.family = DeviceStackedOperator(
+            StackedOperator(Ar.indptr, Ar.indices, stack.values[:, src],
+                            stack.shape), device)
+        self.op = WindowSpmm(Ar.indptr, Ar.indices,
+                             np.zeros(len(src), np.complex64), stack.shape,
+                             nrhs, device)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        dev = self.op.vals.device
+        self.perm = torch.from_numpy(perm).to(dev)
+        self.inv = torch.from_numpy(inv).to(dev)
+
+    def __call__(self, L, X: np.ndarray) -> np.ndarray:
+        vals = self.family.data(L.coefficients()).to(torch.complex64)
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.complex64)).to(
+            self.perm.device)[self.perm]
+        Y = window_spmm(self.op.indptr, self.op.cols, vals, Xd)
+        return Y[self.inv].cpu().numpy()
+
+
+def _plan(L, attr: str, key, build):
+    """The plan cached on L under ``attr`` while its union pattern
+    (``L._stack()``) and ``key`` stay the same; else a new ``build()``."""
+    cached = getattr(L, attr, None)
     if cached is not None and cached[0] is L._stack() and cached[1] == key:
         return cached[2]
-    plan = ApplyPlan(L._stack(), bs, device, nrhs)
-    L._bsr_plan = (L._stack(), key, plan)
+    plan = build()
+    setattr(L, attr, (L._stack(), key, plan))
     return plan
 
 
-def operator_apply(L, z, X, *, bs: int = 128, device="cuda") -> np.ndarray:
-    """Y = L(z)·X for a host panel X [n, r] through kernel K1 on ``device``
-    (the card unless the caller asks for the CPU).  The family is evaluated
-    at z on the host (complex128) and its values are written into [bs, bs]
-    blocks in Cuthill–McKee order (the ordering and block structure are
-    built on the first call and reused, see :class:`ApplyPlan`), then
-    applied in complex64; Y comes back in the original ordering as
-    complex64 [n, r]."""
+def operator_apply(L, z, X, *, bs: int = 128, device="cuda",
+                   kernel: str = "bsr") -> np.ndarray:
+    """Y = L(z)·X for a host panel X [n, r] on ``device`` (the card unless
+    the caller asks for the CPU); Y comes back in the original ordering as
+    complex64 [n, r].  The Cuthill–McKee ordering and the device structure
+    are built on the first call per family and reused (cached on L).
+
+    * ``kernel="bsr"`` (K1): the family is evaluated at z on the host
+      (complex128), its values are written into [bs, bs] blocks
+      (:class:`ApplyPlan`) and applied in complex64.
+    * ``kernel="window"`` (the CSR SpMM of K4/K5, for large operators):
+      the family is evaluated on the device and applied in complex64
+      (:class:`WindowPlan`); ``bs`` is not used."""
     X = np.asarray(X)
-    plan = _plan(L, bs, device, X.shape[1])
+    key = (torch.device(device), X.shape[1])
+    if kernel == "bsr":
+        plan = _plan(L, "_bsr_plan", (bs,) + key,
+                     lambda: ApplyPlan(L._stack(), bs, device, X.shape[1]))
+    elif kernel == "window":
+        plan = _plan(L, "_window_plan", key,
+                     lambda: WindowPlan(L._stack(), device, X.shape[1]))
+    else:
+        raise ValueError(f"kernel must be 'bsr' or 'window', got {kernel!r}")
     L.params[L.eigval] = complex(z)
-    plan.load(L.assemble({}).data)
-    Y = np.empty((L.size, X.shape[1]), np.complex64)
-    Y[plan.perm] = plan.op(X[plan.perm])
-    return Y
+    return plan(L, X)
 
 
 def random_panel(n: int, r: int, seed: int = 0) -> np.ndarray:
@@ -221,4 +283,5 @@ def random_panel(n: int, r: int, seed: int = 0) -> np.ndarray:
 
 
 __all__ = ["bsr_spmm", "bsr_spmm_ref", "build", "BsrSpmm", "ApplyPlan",
-           "operator_apply", "random_panel", "BLOCK_SIZES", "TILE_COLS"]
+           "WindowPlan", "operator_apply", "random_panel", "BLOCK_SIZES",
+           "TILE_COLS"]

@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: the kernels of the port, one source each
-KERNELS = ("slab_thomas", "dense_gmres", "bsr_spmm")
+KERNELS = ("slab_thomas", "dense_gmres", "bsr_spmm", "window_spmm")
 
 
 def source(name: str) -> str:

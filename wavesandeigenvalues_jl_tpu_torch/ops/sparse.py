@@ -173,4 +173,31 @@ class StackedOperator:
                          np.diff(self.indptr))
 
 
-__all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern"]
+# ---------------------------------------------------------------------------
+# ELL packing (fixed-width rows)
+
+
+def csr_to_ell(indptr, indices, n_cols: int, width: int | None = None):
+    """Pack CSR structure into padded ELL: per-row fixed-width column ids and
+    a slot→nnz gather map (padding points at an extra zero slot)."""
+    counts = np.diff(indptr)
+    n_rows = len(counts)
+    nnz = len(indices)
+    w = int(width if width is not None else (counts.max() if n_rows else 0))
+    if counts.max(initial=0) > w:
+        raise ValueError("ELL width too small")
+    cols = np.zeros((n_rows, w), dtype=IDTYPE)
+    gather = np.full((n_rows, w), nnz, dtype=np.int64)  # pad slot
+    mask = np.zeros((n_rows, w), dtype=bool)
+    # vectorized ragged→padded scatter: entry k of row i goes to slot
+    # (i, k − indptr[i])
+    ridx = np.repeat(np.arange(n_rows), counts)
+    pos = np.arange(nnz) - np.repeat(indptr[:-1], counts)
+    cols[ridx, pos] = indices
+    gather[ridx, pos] = np.arange(nnz)
+    mask[ridx, pos] = True
+    return cols, gather, mask
+
+
+__all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
+           "csr_to_ell"]
