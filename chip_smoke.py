@@ -11,7 +11,8 @@ their real size, each with the launch counters set to 0 just before it:
 * path A, the dense local eigensolve: ``mslp`` on the 1,369-DOF active
   Rijke tube through ``FusedPencilSolver`` and the dense GMRES kernel K2;
 * path B, the operator apply Y = L(ω)·X on the 7,259-DOF family and a
-  128-column panel through the BSR SpMM kernel K1, at bs = 32, 64, 128;
+  128-column panel through the BSR SpMM kernel K1 (the blocks' nonzeros
+  only), at bs = 32, 64, 128;
 * path C, the large-operator apply: ``operator_apply(kernel="window")`` on
   the 57,210-DOF octosplit passive family and a 128-column panel through
   the CSR SpMM kernel that stands for K4 and K5.
@@ -42,8 +43,12 @@ OMEGA_1369 = 1075.8988207005789 + 376.3799204921555j
 OMEGA_RTOL = 1e-8
 #: K3 against its plain version: float32 sums in another order over 2m steps
 K3_RTOL = 1e-5
-#: (sides, m, s) of the 7,259-DOF slice and of the 437-DOF test family
-K3_SHAPES = [(2, 60, 256), (2, 13, 128)]
+#: K1 and K3 are held against their plain versions on this many launches,
+#: each into its own output: a race in their barriers shows on some only
+REPEATS = 50
+#: (sides, m, s) of the 7,259-DOF slice, of the 437-DOF test family, and a
+#: wider s with a short m
+K3_SHAPES = [(2, 60, 256), (2, 13, 128), (2, 5, 384)]
 #: K2 against its plain version on the JAX test problem (float32 sums in
 #: another order) and that test's residual bar (test_pallas_gmres.py:49)
 K2_RTOL, K2_RES = 1e-5, 5e-6
@@ -143,6 +148,31 @@ def _median_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def _library_ms(fn, what):
+    """(ms, device ms, text) of a PyTorch yardstick call: the median per
+    call with the host's launch, as for every kernel, and the device time
+    per call (``utils.timing.device_ms``: CUDA-graph replays); (None,
+    None, why) where PyTorch refuses it.  The yardstick is not the port,
+    so its refusal does not fail the run."""
+    from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
+    try:
+        ms, dev = _median_ms(fn), device_ms(fn)
+    except RuntimeError as e:
+        return None, None, f"{what} refused: {str(e).splitlines()[0]}"
+    return ms, dev, f"{what} {ms:.4f} ms a call, {dev:.4f} ms on the device"
+
+
+def _max_err(fn, ref, what):
+    """(max |fn() − ref|, outputs) over REPEATS launches, each into its own
+    output (launched back to back, compared after); fails on a non-finite
+    one."""
+    outs = [fn() for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(y).all()) for y in outs),
+          f"{what}: non-finite output")
+    return max((y - ref).abs().max().item() for y in outs), outs
+
+
 def _wrappers():
     from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
                                                       slab_thomas, window_spmm)
@@ -163,6 +193,7 @@ def phase_compare_k3():
     """K3 against slab_thomas_ref on the card, at the slice's shapes."""
     from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (
         slab_thomas, slab_thomas_ref)
+    from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
     out = {}
     for sides, m, s in K3_SHAPES:
         rng = np.random.default_rng(m * s)
@@ -173,28 +204,31 @@ def phase_compare_k3():
               + 1j * rng.standard_normal((sides, m, s))).astype(np.complex64)
         st = torch.from_numpy(stream).cuda()
         b = torch.from_numpy(bt).cuda()
-        x = slab_thomas(st, b)
         ref = slab_thomas_ref(st, b)
-        torch.cuda.synchronize()
-        err = (x - ref).abs().max().item()
+        err, _ = _max_err(lambda: slab_thomas(st, b), ref, f"K3 {shp}")
         rel = err / ref.abs().max().item()
-        check(bool(torch.isfinite(x).all()), f"K3 {shp}: non-finite output")
         ms = _median_ms(lambda: slab_thomas(st, b))
+        dev_ms = device_ms(lambda: slab_thomas(st, b))
         plain_ms = _median_ms(lambda: slab_thomas_ref(st, b))
         # stream read once, bt read once, x written once; 8 flops per
         # complex multiply-add of the 2m [1,s]x[s,s] products
         bound_ms, bound_by = bound(
             8 * (st.numel() + 2 * b.numel()), 8 * sides * 2 * m * s * s)
-        gbs = 2 * 2 * m * s * s * 8 / (ms * 1e-3) / 1e9
-        print(f"K3 (sides, m, s)=({sides}, {m}, {s}): max abs err {err:.3e} "
-              f"rel {rel:.3e} (tol {K3_RTOL:.0e}) | kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s of stream), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
-              "computes the block recursion", flush=True)
+        gbs = sides * 2 * m * s * s * 8 / (dev_ms * 1e-3) / 1e9
+        print(f"K3 (sides, m, s)=({sides}, {m}, {s}): max abs err over "
+              f"{REPEATS} launches {err:.3e} rel {rel:.3e} (tol "
+              f"{K3_RTOL:.0e}) | kernel {ms:.4f} ms a call with the host's "
+              f"launch, {dev_ms:.4f} ms on the device ({gbs:.1f} GB/s of "
+              f"stream, {dev_ms / (2 * m) * 1e3:.2f} us a step), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
+              "single PyTorch call computes the block recursion",
+              flush=True)
         check(rel <= K3_RTOL, f"K3 disagrees with its plain version: {rel}")
         out[(sides, m, s)] = {"max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None}
+                              "bound_by": bound_by, "library_ms": None,
+                              "device_ms": dev_ms,
+                              "library_device_ms": None}
     return out
 
 
@@ -273,10 +307,13 @@ def phase_compare_k2(L1369):
               f"{rel:.3e} > {tol:.0e}")
         if cycles == 2:
             check(max(true) <= K2_RES, f"K2 residual {max(true):.3e}")
+        # K2 and its yardstick take milliseconds, far above the host's
+        # launch, so no device time is taken apart
         out[(S, N, m, cycles)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": None,
+            "library_device_ms": None}
     return out
 
 
@@ -389,15 +426,17 @@ def phase_apply_path(L7259):
 
 
 def phase_compare_k1(A):
-    """K1 against bsr_spmm_ref on the reordered 7,259-DOF operator at each
-    block size, with torch.sparse.mm of the CSR operator as yardstick."""
-    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm,
-                                                                bsr_spmm,
-                                                                bsr_spmm_ref,
-                                                                random_panel)
+    """K1 against its plain version on the reordered 7,259-DOF operator at
+    each block size, with two yardsticks on the same operator and panel:
+    torch.sparse.mm of the CSR operator, and the port's own CSR kernel
+    (window_spmm, the K4/K5 counterpart)."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (
+        BsrSpmm, bsr_spmm, bsr_spmm_packed_ref, random_panel)
     from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
     from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
                                                               permute_csr)
+    from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import WindowSpmm
+    from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
     Ar = permute_csr(A, cuthill_mckee(A))
     X = random_panel(A.shape[0], 128)
     csr = torch.sparse_csr_tensor(
@@ -405,46 +444,53 @@ def phase_compare_k1(A):
             np.int64)), torch.from_numpy(Ar.data.astype(np.complex64)),
         size=Ar.shape).cuda()
     Xd = torch.from_numpy(X).cuda()
-    try:
-        library_ms = _median_ms(lambda: torch.sparse.mm(csr, Xd))
-        library = f"torch.sparse.mm {library_ms:.4f} ms"
-    except RuntimeError as e:           # the yardstick only, not the port
-        library_ms = None
-        library = f"torch.sparse.mm refused: {str(e).splitlines()[0]}"
+    library_ms, library_dev, library = _library_ms(
+        lambda: torch.sparse.mm(csr, Xd), "torch.sparse.mm")
+    window = WindowSpmm.from_csr(Ar, nrhs=128, device="cuda")
+    window_ms = _median_ms(lambda: window.apply(Xd))
+    window_dev = device_ms(lambda: window.apply(Xd))
     out = {}
     for bs in K1_BLOCK_SIZES:
         bsr = BsrOperator.from_csr(Ar, bs=bs)
         op = BsrSpmm(bsr, "cuda")
         Xp = op.panel(X)
-        Y = bsr_spmm(op.blocks, op.block_cols, Xp)
-        ref = bsr_spmm_ref(op.blocks, op.block_cols, Xp)
-        scale = bsr_spmm_ref(op.blocks.abs().to(torch.complex64),
-                             op.block_cols, Xp.abs().to(torch.complex64)).real
-        torch.cuda.synchronize()
-        err = (Y - ref).abs().max().item()
-        rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
-        ms = _median_ms(lambda: bsr_spmm(op.blocks, op.block_cols, Xp))
-        plain_ms = _median_ms(lambda: bsr_spmm_ref(op.blocks, op.block_cols,
-                                                   Xp))
-        # blocks, block columns and X read once, Y written once; the
-        # operations the product needs: 8 per nonzero entry and column
-        nbytes = (8 * (op.blocks.numel() + 2 * Xp.numel())
-                  + 4 * op.block_cols.numel())
-        bound_ms, bound_by = bound(nbytes, op.flops)
+        args = (op.row_ptr, op.lcol, op.vals, op.block_cols, Xp)
+        ref = bsr_spmm_packed_ref(*args)
+        scale = bsr_spmm_packed_ref(
+            op.row_ptr, op.lcol, op.vals.abs().to(torch.complex64),
+            op.block_cols, Xp.abs().to(torch.complex64)).real
+        err, Ys = _max_err(lambda: bsr_spmm(*args), ref, f"K1 bs={bs}")
+        rel = max(((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+                  for Y in Ys)
+        del Ys
+        ms = _median_ms(lambda: bsr_spmm(*args))
+        dev_ms = device_ms(lambda: bsr_spmm(*args))
+        plain_ms = _median_ms(lambda: bsr_spmm_packed_ref(*args))
+        # the bytes the product must move (each nonzero's value and column,
+        # row_ptr and block_cols once, X read once, Y written once) and the
+        # operations it needs (8 per nonzero and column); beside it, the
+        # bound of the dense-block layout, which counted the padded blocks
+        bound_ms, bound_by = bound(op.bytes, op.flops)
+        padded_ms, _ = bound(op.padded_bytes, op.flops)
         print(f"K1 bs={bs}: {op.nbr} block rows x {op.maxb} slots, "
               f"{op.nnz_blocks} blocks, {op.nnz} nonzeros, fill "
-              f"{bsr.fill_ratio:.4f} | max abs err {err:.3e}, max "
-              f"err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, {library} | bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-              f"{op.flops / 1e9:.4f} GFLOP needed) | padded work "
-              f"{op.padded_flops / 1e9:.2f} GFLOP, "
-              f"{op.padded_flops / ms * 1e-9:.2f} padded TFLOP/s", flush=True)
+              f"{bsr.fill_ratio:.4f} | over {REPEATS} launches max abs err "
+              f"{err:.3e}, max err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | "
+              f"kernel {ms:.4f} ms a call with the host's launch, "
+              f"{dev_ms:.4f} ms on the device "
+              f"({op.bytes / dev_ms * 1e-6:.1f} GB/s), plain "
+              f"{plain_ms:.4f} ms | {library} | window_spmm {window_ms:.4f} "
+              f"ms a call, {window_dev:.4f} ms on the device | bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {op.bytes / 1e6:.2f} MB, "
+              f"{op.flops / 1e9:.4f} GFLOP), {bound_ms / dev_ms * 100:.1f} % "
+              f"of it on the device | padded layout bound {padded_ms:.4f} "
+              f"ms ({op.padded_bytes / 1e6:.1f} MB)", flush=True)
         check(rel <= K1_RTOL, f"K1 bs={bs} disagrees with its plain "
               f"version: {rel:.3e}")
         out[bs] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
+                   "library_ms": library_ms, "device_ms": dev_ms,
+                   "library_device_ms": library_dev}
     return out
 
 
@@ -519,6 +565,16 @@ def phase_large_path():
     return counts, L, plan
 
 
+def _block_slots(indptr, cols, bs):
+    """maxb of ``BsrOperator.from_csr`` on a CSR pattern: the most block
+    columns one block row of size bs touches."""
+    n = len(indptr) - 1
+    nbr = -(-n // bs)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    blocks = np.unique(rows // bs * nbr + cols // bs)
+    return int(np.bincount(blocks // nbr).max())
+
+
 def phase_compare_k45(L, plan):
     """The CSR SpMM kernel (K4/K5) against window_spmm_ref on the card, on
     the reordered 57,210-DOF operator at OMEGA_APPLY, with torch.sparse.mm
@@ -526,12 +582,19 @@ def phase_compare_k45(L, plan):
     from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import random_panel
     from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
         WindowSpmm, window_spmm, window_spmm_ref)
+    from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
     L.params[L.eigval] = OMEGA_APPLY
     indptr, cols = plan.op.indptr, plan.op.cols
     vals = plan.family.data(L.coefficients()).to(torch.complex64)
     n, nnz = indptr.numel() - 1, cols.numel()
     csr = torch.sparse_csr_tensor(indptr.long(), cols.long(), vals,
                                   size=(n, n))
+    slots = {bs: _block_slots(indptr.cpu().numpy(), cols.cpu().numpy(), bs)
+             for bs in K1_BLOCK_SIZES}
+    print("K1 window of this operator in path C's ordering (slots maxb, "
+          "staged rows maxb·bs): " + ", ".join(
+              f"bs {bs}: {k} slots, {k * bs} rows"
+              for bs, k in slots.items()), flush=True)
     out = {}
     for r in K45_WIDTHS:
         op = WindowSpmm(indptr.cpu().numpy(), cols.cpu().numpy(),
@@ -546,27 +609,25 @@ def phase_compare_k45(L, plan):
         err = (Y - ref).abs().max().item()
         rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
         ms = _median_ms(lambda: window_spmm(indptr, cols, vals, Xd))
+        dev_ms = device_ms(lambda: window_spmm(indptr, cols, vals, Xd))
         plain_ms = _median_ms(lambda: window_spmm_ref(indptr, cols, vals,
                                                       Xd))
-        try:
-            library_ms = _median_ms(lambda: torch.sparse.mm(csr, Xd))
-            library = f"torch.sparse.mm {library_ms:.4f} ms"
-        except RuntimeError as e:       # the yardstick only, not the port
-            library_ms = None
-            library = f"torch.sparse.mm refused: {str(e).splitlines()[0]}"
+        library_ms, library_dev, library = _library_ms(
+            lambda: torch.sparse.mm(csr, Xd), "torch.sparse.mm")
         bound_ms, bound_by = bound(op.stream_bytes, op.flops)
-        gbs = op.stream_bytes / (ms * 1e-3) / 1e9
+        gbs = op.stream_bytes / (dev_ms * 1e-3) / 1e9
         print(f"K4/K5 (window_spmm) n={n} nnz={nnz} r={r}: max abs err "
               f"{err:.3e}, max err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | "
-              f"kernel {ms:.4f} ms ({gbs:.1f} GB/s of "
-              f"{op.stream_bytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
-              f"{library} | bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{op.flops / 1e9:.4f} GFLOP)", flush=True)
+              f"kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
+              f"({gbs:.1f} GB/s of {op.stream_bytes / 1e6:.1f} MB), plain "
+              f"{plain_ms:.4f} ms, {library} | bound {bound_ms:.4f} ms "
+              f"({bound_by}; {op.flops / 1e9:.4f} GFLOP)", flush=True)
         check(rel <= K1_RTOL, f"K4/K5 r={r} disagrees with its plain "
               f"version: {rel:.3e}")
         out[r] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": library_ms}
+                  "library_ms": library_ms, "device_ms": dev_ms,
+                  "library_device_ms": library_dev}
         if r == 128:
             chain, plain_chain = op.chain(CHAIN_M), op.chain(
                 CHAIN_M, window_spmm_ref)

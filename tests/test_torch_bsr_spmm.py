@@ -1,7 +1,7 @@
 """The port's operator apply (ops/reorder, ops/device.BsrOperator,
-ops/bsr_spmm: kernel K1) against the JAX package on the 437-DOF active
-Rijke operator, on the CPU, where the K1 wrapper runs its plain PyTorch
-version."""
+ops/bsr_spmm: kernel K1 and its packed layout) against the JAX package on
+the 437-DOF active Rijke operator, on the CPU, where the K1 wrapper runs
+its plain PyTorch version."""
 import numpy as np
 import pytest
 import torch
@@ -17,10 +17,9 @@ from wavesandeigenvalues_jl_tpu.ops.reorder import \
     permute_csr as permute_csr_jax
 from wavesandeigenvalues_jl_tpu.ops.sparse import CSR as CSRJax
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
-from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm, bsr_spmm,
-                                                            bsr_spmm_ref,
-                                                            operator_apply,
-                                                            random_panel)
+from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (
+    ApplyPlan, BsrSpmm, bsr_spmm, bsr_spmm_packed_ref, bsr_spmm_ref,
+    operator_apply, pack, random_panel, unpack)
 from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
 from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (bandwidth,
                                                           cuthill_mckee,
@@ -104,6 +103,77 @@ def test_ref_matches_jax_xla_and_pallas(operator, bs):
         assert _rowwise(Y, np.asarray(jax_apply(X)), Ar, X) <= 1e-6
 
 
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_packed_ref_matches_dense_ref_and_jax(operator, bs):
+    """The plain version of the packed layout against bsr_spmm_ref on the
+    dense blocks and bsr_spmm_xla (r = 128), and against the Pallas kernel
+    in interpret mode (r = 8), row-wise to 1e-6 (complex64 sums in another
+    order)."""
+    A, Aj = operator
+    perm = cuthill_mckee(A)
+    Ar = permute_csr(A, perm)
+    b = BsrOperator.from_csr(Ar, bs=bs)
+    bj = BsrJax.from_csr(permute_csr_jax(Aj, perm), bs=bs)
+    n = A.shape[0]
+    for r, jax_apply in [(128, bsr_spmm_xla(bj)),
+                         (8, PallasBsrSpmm(bj, nrhs=8, interpret=True))]:
+        op = BsrSpmm(b, "cpu", nrhs=r)
+        X = random_panel(n, r, seed=r)
+        Xp = op.panel(X)
+        Y = bsr_spmm_packed_ref(op.row_ptr, op.lcol, op.vals, op.block_cols,
+                                Xp)
+        Yd = bsr_spmm_ref(torch.from_numpy(b.blocks.astype(np.complex64)),
+                          op.block_cols, Xp)
+        Y, Yd = (y.reshape(-1, r)[:n].numpy() for y in (Y, Yd))
+        assert _rowwise(Y, Yd, Ar, X) <= 1e-6
+        assert _rowwise(Y, np.asarray(jax_apply(X)), Ar, X) <= 1e-6
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_pack_round_trips(operator, bs):
+    """Unpacking the packed layout gives BsrOperator.blocks exactly; every
+    row's local columns ascend and stay in the block row's real slots;
+    a nonzero in a padding slot is refused."""
+    A, _ = operator
+    b = BsrOperator.from_csr(permute_csr(A, cuthill_mckee(A)), bs=bs)
+    packed = pack(b)
+    maxb = b.block_cols.shape[1]
+    np.testing.assert_array_equal(unpack(*packed, maxb, bs), b.blocks)
+    assert len(packed.vals) == np.count_nonzero(b.blocks)
+    assert packed.row_ptr[-1] == len(packed.lcol)
+    rows = np.repeat(np.arange(b.n), np.diff(packed.row_ptr))
+    same = rows[1:] == rows[:-1]
+    assert np.all(np.diff(packed.lcol)[same] > 0)
+    op = BsrSpmm(b, "cpu")
+    np.testing.assert_array_equal(
+        unpack(op.row_ptr, op.lcol, op.vals, maxb, bs),
+        b.blocks.astype(np.complex64))
+    full = b.block_mask.all(axis=1)
+    if not full.all():
+        br = int(np.flatnonzero(~full)[0])
+        k = int(b.block_mask[br].sum())
+        bad = BsrOperator(b.blocks.copy(), b.block_cols, b.block_mask, bs,
+                          b.n)
+        bad.blocks[br, k, 0, 0] = 1.0
+        with pytest.raises(ValueError, match="padding"):
+            pack(bad)
+
+
+def test_apply_plan_load_writes_the_blocks_values(operator):
+    """ApplyPlan.load writes, into the packed layout, the values the dense
+    blocks of the permuted operator hold (complex64)."""
+    A, _ = operator
+    L = active_rijke_family()
+    plan = ApplyPlan(L._stack(), 64, "cpu", 32)
+    L.params[L.eigval] = OMEGA
+    plan.load(L.assemble({}).data)
+    b = BsrOperator.from_csr(permute_csr(A, plan.perm), bs=64)
+    op = plan.op
+    np.testing.assert_array_equal(
+        unpack(op.row_ptr, op.lcol, op.vals, op.maxb, op.bs),
+        b.blocks.astype(np.complex64))
+
+
 def test_wrapper_on_cpu_counts_twin_calls(operator):
     A, _ = operator
     op = BsrSpmm(BsrOperator.from_csr(A, bs=64), "cpu", nrhs=16)
@@ -113,12 +183,14 @@ def test_wrapper_on_cpu_counts_twin_calls(operator):
     assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches, calls + 1)
     assert Y.shape == X.shape and Y.dtype == np.complex64
     with pytest.raises(TypeError):
-        bsr_spmm(op.blocks.to(torch.complex128), op.block_cols,
-                 op.panel(X))
+        bsr_spmm(op.row_ptr, op.lcol, op.vals.to(torch.complex128),
+                 op.block_cols, op.panel(X))
     with pytest.raises(TypeError):
-        bsr_spmm(op.blocks, op.block_cols.long(), op.panel(X))
+        bsr_spmm(op.row_ptr, op.lcol.long(), op.vals, op.block_cols,
+                 op.panel(X))
     with pytest.raises(ValueError):
-        bsr_spmm(op.blocks, op.block_cols, op.panel(X)[:, :32])
+        bsr_spmm(op.row_ptr, op.lcol, op.vals, op.block_cols,
+                 op.panel(X)[:, :32])
 
 
 @pytest.mark.parametrize("bs", [32, 128])

@@ -17,17 +17,17 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
     FusedPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
-from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (BsrSpmm, bsr_spmm,
-                                                            bsr_spmm_ref,
-                                                            operator_apply,
-                                                            random_panel)
+from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (
+    BsrSpmm, bsr_spmm, bsr_spmm_packed_ref, operator_apply, random_panel)
 from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (dense_gmres,
                                                                dense_gmres_ref)
 from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
 from wavesandeigenvalues_jl_tpu_torch.ops.gmres import gmres_test_problem
 from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
                                                           permute_csr)
-from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (slab_thomas,
+from wavesandeigenvalues_jl_tpu_torch.ops.sparse import CSR
+from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (S_MAX,
+                                                               slab_thomas,
                                                                slab_thomas_ref)
 from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (WindowSpmm,
                                                                window_spmm,
@@ -38,6 +38,9 @@ pytestmark = pytest.mark.cuda
 Z0 = 340 * 2 * np.pi
 #: JAX host mslp (complex128 sparse LU) on the 437-DOF active family
 OMEGA_437 = 1074.9363291294444 + 373.1589412263712j
+#: K1 and K3 are held against their plain versions on this many launches,
+#: each into its own output: a race in their barriers shows on some only
+REPEATS = 50
 
 
 @pytest.fixture
@@ -47,10 +50,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sides,m,s", [(2, 60, 256), (2, 13, 128)])
+@pytest.mark.parametrize("sides,m,s", [(2, 60, 256), (2, 13, 128),
+                                       (2, 5, 384), (1, 1, 128)])
 def test_kernel_matches_twin(cuda, sides, m, s):
     """K3 against its plain version on the card, to 1e-5 relative (float32
-    sums in another order over a 2m-step recursion)."""
+    sums in another order over a 2m-step recursion), on every one of
+    REPEATS launches made back to back."""
     rng = np.random.default_rng(m * s)
     shp = (sides, 2 * m, s, s)
     stream = ((rng.standard_normal(shp) + 1j * rng.standard_normal(shp))
@@ -58,14 +63,47 @@ def test_kernel_matches_twin(cuda, sides, m, s):
     bt = (rng.standard_normal((sides, m, s))
           + 1j * rng.standard_normal((sides, m, s))).astype(np.complex64)
     st, b = torch.from_numpy(stream).to(cuda), torch.from_numpy(bt).to(cuda)
+    _check_k3(st, b)
+
+
+def _check_k3(st, b):
+    """REPEATS launches of K3, each within 1e-5 relative of the plain
+    version, and no plain call."""
     launches, calls = slab_thomas.launches, slab_thomas.twin_calls
-    x = slab_thomas(st, b)
+    xs = [slab_thomas(st, b) for _ in range(REPEATS)]
     torch.cuda.synchronize()
     assert (slab_thomas.launches, slab_thomas.twin_calls) == \
-        (launches + 1, calls)
+        (launches + REPEATS, calls)
     ref = slab_thomas_ref(st, b)
-    rel = ((x - ref).abs().max() / ref.abs().max()).item()
+    rel = max(((x - ref).abs().max() / ref.abs().max()).item() for x in xs)
     assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("sides,m,s", [(1, 3, 2304), (1, 2, 4608),
+                                       (1, 1, S_MAX)])
+def test_kernel_wide_slabs(cuda, sides, m, s):
+    """K3 on slabs wider than one TMA box a stripe (s > 2048: several boxes
+    a chunk, shallower chunks, several columns a thread), up to the widest
+    it takes, against its plain version as above."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    st = torch.randn((sides, 2 * m, s, s), dtype=torch.complex64,
+                     device=cuda, generator=g) * (0.5 / s)
+    b = torch.randn((sides, m, s), dtype=torch.complex64, device=cuda,
+                    generator=g)
+    _check_k3(st, b)
+
+
+def test_slab_thomas_refuses(cuda):
+    """K3's wrapper raises on s no multiple of 128 and on s above S_MAX,
+    and launches nothing."""
+    launches = slab_thomas.launches
+    for s in (200, S_MAX + 128):
+        st = torch.empty((1, 2, s, s), dtype=torch.complex64, device=cuda)
+        b = torch.zeros((1, 1, s), dtype=torch.complex64, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            slab_thomas(st, b)
+        del st
+    assert slab_thomas.launches == launches
 
 
 def test_step_on_card_matches_cpu(cuda):
@@ -137,25 +175,70 @@ def test_dense_mslp_on_card(cuda):
     assert dense_gmres.twin_calls == calls
 
 
-@pytest.mark.parametrize("bs", [32, 64, 128])
-def test_bsr_spmm_matches_twin(cuda, bs):
-    """K1 against its plain version on the card, on the reordered 437-DOF
-    operator at ω = 2π·300 with a 128-column panel, row-wise to 1e-6."""
+@pytest.fixture(scope="module")
+def reordered_437():
+    """The reordered 437-DOF operator at ω = 2π·300 (host CSR)."""
     L = active_rijke_family()
     L.params[L.eigval] = 2 * np.pi * 300.0
     A = L.assemble({})
-    Ar = permute_csr(A, cuthill_mckee(A))
-    op = BsrSpmm(BsrOperator.from_csr(Ar, bs=bs), cuda)
-    Xp = op.panel(random_panel(A.shape[0], 128, seed=bs))
+    return permute_csr(A, cuthill_mckee(A))
+
+
+@pytest.mark.parametrize("r", [32, 128, 160])
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_bsr_spmm_matches_twin(cuda, reordered_437, bs, r):
+    """K1 against its plain version on the card, on the reordered 437-DOF
+    operator, row-wise to 1e-6 on every one of REPEATS launches.  437 is no
+    multiple of bs, so the last block row has padding rows without
+    nonzeros, which must come out 0."""
+    Ar = reordered_437
+    Ys = _check_k1(Ar, bs, r, cuda)
+    assert all((Y.reshape(-1, r)[Ar.shape[0]:] == 0).all() for Y in Ys)
+
+
+def _check_k1(A, bs, r, cuda):
+    """REPEATS launches of K1 on A at (bs, r), each row-wise within 1e-6 of
+    the plain version, and no plain call; returns the outputs."""
+    op = BsrSpmm(BsrOperator.from_csr(A, bs=bs), cuda, nrhs=r)
+    Xp = op.panel(random_panel(A.shape[0], r, seed=bs + r))
+    args = (op.row_ptr, op.lcol, op.vals, op.block_cols, Xp)
     launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
-    Y = bsr_spmm(op.blocks, op.block_cols, Xp)
+    Ys = [bsr_spmm(*args) for _ in range(REPEATS)]
     torch.cuda.synchronize()
-    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches + 1, calls)
-    ref = bsr_spmm_ref(op.blocks, op.block_cols, Xp)
-    scale = bsr_spmm_ref(op.blocks.abs().to(torch.complex64), op.block_cols,
-                         Xp.abs().to(torch.complex64)).real
-    rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == \
+        (launches + REPEATS, calls)
+    ref = bsr_spmm_packed_ref(*args)
+    scale = bsr_spmm_packed_ref(op.row_ptr, op.lcol,
+                                op.vals.abs().to(torch.complex64),
+                                op.block_cols,
+                                Xp.abs().to(torch.complex64)).real
+    rel = max(((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+              for Y in Ys)
     assert rel <= 1e-6
+    return Ys
+
+
+@pytest.mark.parametrize("bs", [32, 64, 128])
+def test_bsr_spmm_wide_window(cuda, bs):
+    """K1 on a band of ±800 rows: 51, 27 and 15 slots at bs 32, 64 and 128,
+    more than shared memory holds at once (28, 14, 7), so the window is
+    staged in two or three passes; against its plain version as above."""
+    A = _banded(2500, 800)
+    _check_k1(CSR(A.indptr, A.indices, A.data, A.shape), bs, 64, cuda)
+
+
+def test_bsr_spmm_refuses(cuda, reordered_437):
+    """K1's wrapper raises on a panel width that is no multiple of 32 and
+    on a CPU/CUDA mix, and launches nothing."""
+    op = BsrSpmm(BsrOperator.from_csr(reordered_437, bs=64), cuda, nrhs=48)
+    Xp = op.panel(random_panel(reordered_437.shape[0], 48))
+    launches = bsr_spmm.launches
+    with pytest.raises(ValueError, match="multiple"):
+        bsr_spmm(op.row_ptr, op.lcol, op.vals, op.block_cols, Xp)
+    with pytest.raises(ValueError):
+        bsr_spmm(op.row_ptr.cpu(), op.lcol, op.vals, op.block_cols,
+                 Xp[..., :32].contiguous())
+    assert bsr_spmm.launches == launches
 
 
 def test_operator_apply_on_card(cuda):

@@ -1,4 +1,5 @@
-from .bsr_spmm import BsrSpmm, bsr_spmm, bsr_spmm_ref, operator_apply
+from .bsr_spmm import (BsrSpmm, bsr_spmm, bsr_spmm_packed_ref, bsr_spmm_ref,
+                       operator_apply)
 from .dense_gmres import dense_gmres, dense_gmres_ref
 from .device import BsrOperator, DeviceStackedOperator, EllOperator, spmv_ell
 from .gmres import BatchedBlockDiagInv
@@ -16,7 +17,8 @@ __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
            "factorize", "SlabPartition", "bfs_levels", "slab_thomas",
            "slab_thomas_ref", "dense_gmres", "dense_gmres_ref",
            "BatchedBlockDiagInv", "BsrOperator", "BsrSpmm", "bsr_spmm",
-           "bsr_spmm_ref", "operator_apply", "cuthill_mckee", "permute_csr",
-           "bandwidth", "csr_to_ell", "EllOperator", "spmv_ell",
+           "bsr_spmm_ref", "bsr_spmm_packed_ref", "operator_apply",
+           "cuthill_mckee", "permute_csr", "bandwidth", "csr_to_ell",
+           "EllOperator", "spmv_ell",
            "DeviceStackedOperator", "WindowSpmm", "window_spmm",
            "window_spmm_ref"]

@@ -6,6 +6,10 @@ layout) as one launch of a hand-written CUDA kernel, the counterpart of the
 Pallas TPU kernel ``wavesandeigenvalues_jl_tpu/ops/pallas_thomas.py ::
 build_slab_thomas``.
 
+* The kernel runs each side on a thread-block cluster: every block owns a
+  column stripe of the blocks, a producer warp streams the stripes ahead
+  of the recursion through a shared-memory ring, and the carry row goes
+  to every block of the cluster through distributed shared memory.
 * :func:`slab_thomas_ref` is its plain PyTorch version: a Python loop of
   [1, s] x [s, s] products.
 * :func:`slab_thomas` takes the plain version only for tensors that lie on
@@ -23,6 +27,11 @@ import functools
 import torch
 
 from . import cuda_build
+
+#: the kernel takes slab widths s that are a multiple of this, up to S_MAX
+#: (its double-buffered carry row and two ring stages fill shared memory)
+S_MULTIPLE = 128
+S_MAX = 9472
 
 
 def slab_thomas_ref(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -74,15 +83,21 @@ def _check(stream: torch.Tensor, bt: torch.Tensor):
 
 def slab_thomas(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """x [sides, m, s] = block-Thomas substitution of bt through the W/C
-    stream.  CPU tensors: plain version; CUDA tensors: the kernel."""
+    stream.  CPU tensors: plain version; CUDA tensors: the kernel (s a
+    multiple of 128, as ``FusedSlabPencilSolver`` pads it, up to 9,472)."""
     _check(stream, bt)
     if stream.device.type == "cpu":
         slab_thomas.twin_calls += 1
         return slab_thomas_ref(stream, bt)
     if stream.device.type != "cuda":
         raise ValueError(f"slab_thomas has no kernel for {stream.device}")
-    lib = build()["lib"]
     sides, m, s = bt.shape
+    if s % S_MULTIPLE or s > S_MAX or stream.data_ptr() % 16 or \
+            bt.data_ptr() % 16:
+        raise ValueError(f"the kernel takes s a multiple of {S_MULTIPLE} up "
+                         f"to {S_MAX} and 16-byte aligned tensors, got "
+                         f"s={s}")
+    lib = build()["lib"]
     x = torch.empty_like(bt)
     with torch.cuda.device(stream.device):
         code = lib.slab_thomas_c64(
@@ -97,4 +112,5 @@ slab_thomas.launches = 0
 slab_thomas.twin_calls = 0
 
 
-__all__ = ["slab_thomas", "slab_thomas_ref", "build"]
+__all__ = ["slab_thomas", "slab_thomas_ref", "build", "S_MULTIPLE",
+           "S_MAX"]

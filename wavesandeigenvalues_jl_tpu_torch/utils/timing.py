@@ -5,10 +5,12 @@ registry (nested phases get dotted paths) and, while CUDA is initialised,
 pushes an NVTX range of the same name so the phase shows up on a profiler
 timeline next to the kernels it launched.  ``report()`` returns the table,
 ``reset()`` clears it.  Host wall time only: a phase that enqueues device
-work without synchronising measures the enqueue.
+work without synchronising measures the enqueue.  ``device_ms(fn)`` is
+the device time of one call of ``fn``, from CUDA-graph replays.
 """
 from __future__ import annotations
 
+import statistics
 import threading
 import time
 from collections import defaultdict
@@ -62,3 +64,33 @@ def reset():
 
 
 __all__ = ["phase", "report", "reset"]
+
+
+def device_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` (ms): the median over ``reps``
+    replays of a CUDA graph of ``n`` calls, over n.  It leaves out the
+    host's time between calls, which exceeds a kernel's own for
+    microsecond kernels.  ``fn`` must be capturable: no host sync and no
+    first-call set-up (three calls on a side stream come first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
