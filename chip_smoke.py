@@ -43,8 +43,9 @@ OMEGA_1369 = 1075.8988207005789 + 376.3799204921555j
 OMEGA_RTOL = 1e-8
 #: K3 against its plain version: float32 sums in another order over 2m steps
 K3_RTOL = 1e-5
-#: K1 and K3 are held against their plain versions on this many launches,
-#: each into its own output: a race in their barriers shows on some only
+#: K1, K2 and K3 are held against their plain versions on this many
+#: launches, each into its own output: a race in their barriers shows on
+#: some only
 REPEATS = 50
 #: (sides, m, s) of the 7,259-DOF slice, of the 437-DOF test family, and a
 #: wider s with a short m
@@ -249,19 +250,23 @@ def _first_dense_step(L):
 
 
 def _gmres_flops(S, N, m, cycles):
-    """float32 operations of GMRES(m): m + 1 matvecs a cycle (the restart
-    residual included), CGS2 dots and updates, norms and x += V y."""
-    per = ((m + 1) * 8 * N * N + 32 * N * m * (m + 1) // 2
-           + (m + 1) * 4 * N + 8 * N * (m + 1))
-    return S * cycles * per
+    """float32 operations of GMRES(m) from x0 = 0: m matvecs a cycle plus
+    one for the residual of each restart (the first cycle's is b), CGS2
+    dots and updates, norms and x += V y over the m basis vectors."""
+    matvecs = m * cycles + cycles - 1
+    per = 32 * N * m * (m + 1) // 2 + (m + 1) * 4 * N + 8 * N * m
+    return S * (matvecs * 8 * N * N + cycles * per)
 
 
 def phase_compare_k2(L1369):
-    """K2 against dense_gmres_ref on the card, with torch.linalg.solve as
-    the library yardstick."""
+    """K2 against dense_gmres_ref on the card over REPEATS launches (each
+    into its own output, every one the same bits), with torch.linalg.solve
+    as the library yardstick."""
     from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (
-        dense_gmres, dense_gmres_ref)
+        dense_gmres, dense_gmres_ref, plan, sm_count)
     from wavesandeigenvalues_jl_tpu_torch.ops.gmres import gmres_test_problem
+    from wavesandeigenvalues_jl_tpu_torch.utils.timing import (device_ms,
+                                                               events_ms)
     out = {}
     P, b, Gs, b_host = gmres_test_problem(256)
     cases = [((2, 256, 30, 2), torch.from_numpy(P).cuda(),
@@ -269,16 +274,18 @@ def phase_compare_k2(L1369):
     P1, b1 = _first_dense_step(L1369)
     cases.append(((2, P1.shape[1], 80, 1), P1, b1))
     for (S, N, m, cycles), P, b in cases:
-        x = dense_gmres(P, b, m, cycles)
         ref = dense_gmres_ref(P, b, m, cycles)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(x).all()), f"K2 {N}: non-finite output")
-        err = (x - ref).abs().max().item()
+        err, xs = _max_err(lambda: dense_gmres(P, b, m, cycles), ref,
+                           f"K2 {N}")
+        same = all(torch.equal(y, xs[0]) for y in xs)
+        x = xs[0]
+        del xs
         rel = err / ref.abs().max().item()
         # preconditioned residuals ‖P x − b‖/‖b‖ of kernel and plain
         res = [((P @ y.unsqueeze(-1)).squeeze(-1) - b).norm(dim=-1)
                .div(b.norm(dim=-1)).max().item() for y in (x, ref)]
         ms = _median_ms(lambda: dense_gmres(P, b, m, cycles))
+        dev_ms = device_ms(lambda: dense_gmres(P, b, m, cycles))
         plain_ms = _median_ms(lambda: dense_gmres_ref(P, b, m, cycles),
                               reps=3, warmup=1)
         # the yardstick solves the same systems with the padding rows of
@@ -287,17 +294,30 @@ def phase_compare_k2(L1369):
         Pl = P.clone()
         dead = Pl.abs().sum(-1) == 0
         Pl.diagonal(dim1=-2, dim2=-1)[dead] = 1
+        # cuSOLVER refuses graph capture: its device time is taken by
+        # CUDA events over back-to-back calls
         library_ms = _median_ms(lambda: torch.linalg.solve(Pl, b))
+        library_dev = events_ms(lambda: torch.linalg.solve(Pl, b))
+        library = (f"torch.linalg.solve {library_ms:.4f} ms a call, "
+                   f"{library_dev:.4f} ms by CUDA events over 20 "
+                   "back-to-back calls")
         bound_ms, bound_by = bound(8 * (P.numel() + 2 * b.numel()),
                                    _gmres_flops(S, N, m, cycles))
-        line = (f"K2 (sides, N, m, cycles)=({S}, {N}, {m}, {cycles}): max "
-                f"abs err {err:.3e} rel {rel:.3e} | residual ‖Px−b‖/‖b‖ "
-                f"kernel {res[0]:.3e} plain {res[1]:.3e} | kernel {ms:.4f} "
-                f"ms, plain {plain_ms:.4f} ms, torch.linalg.solve "
-                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        pl = plan(S, N, m, sm_count(P.device))
+        step_us = dev_ms / ((m + 1) * cycles) * 1e3
+        line = (f"K2 (sides, N, m, cycles)=({S}, {N}, {m}, {cycles}), "
+                f"{pl.G} row blocks of {pl.R} rows a side ({pl.res} "
+                f"resident) + {S} Givens blocks, {pl.smem} B of shared "
+                f"memory: over {REPEATS} launches max abs err {err:.3e} "
+                f"rel {rel:.3e}, every launch the same bits: {same} | "
+                f"residual ‖Px−b‖/‖b‖ kernel {res[0]:.3e} plain "
+                f"{res[1]:.3e} | kernel {ms:.4f} ms a call, {dev_ms:.4f} ms "
+                f"on the device ({step_us:.2f} us a step), plain "
+                f"{plain_ms:.4f} ms, {library}, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
         if cycles == 2:
-            xs = x.cpu().numpy().astype(np.complex128)
-            true = [np.linalg.norm(Gs[s] @ xs[s] - b_host)
+            xh = x.cpu().numpy().astype(np.complex128)
+            true = [np.linalg.norm(Gs[s] @ xh[s] - b_host)
                     / np.linalg.norm(b_host) for s in range(2)]
             line += (f" | true residuals {true[0]:.3e} {true[1]:.3e} (tol "
                      f"{K2_RES:.0e})")
@@ -305,15 +325,14 @@ def phase_compare_k2(L1369):
         tol = K2_RTOL if cycles == 2 else K2_MAIN_RTOL
         check(rel <= tol, f"K2 disagrees with its plain version at N={N}: "
               f"{rel:.3e} > {tol:.0e}")
+        check(same, f"K2 launches at N={N} differ")
         if cycles == 2:
             check(max(true) <= K2_RES, f"K2 residual {max(true):.3e}")
-        # K2 and its yardstick take milliseconds, far above the host's
-        # launch, so no device time is taken apart
         out[(S, N, m, cycles)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "device_ms": None,
-            "library_device_ms": None}
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": library_dev}
     return out
 
 

@@ -9,8 +9,10 @@ from wavesandeigenvalues_jl_tpu.ops.gmres import \
     BatchedBlockDiagInv as BatchedBlockDiagInvJax
 from wavesandeigenvalues_jl_tpu.ops.pallas_gmres import build_dense_gmres
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
-from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (dense_gmres,
-                                                               dense_gmres_ref)
+from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import (
+    FUSED_MAX_DIM, GMRES_M)
+from wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres import (
+    N_MAX, SMEM_MAX, dense_gmres, dense_gmres_ref, plan)
 from wavesandeigenvalues_jl_tpu_torch.ops.gmres import (BatchedBlockDiagInv,
                                                         gmres_test_problem)
 
@@ -47,6 +49,23 @@ def test_wrapper_on_cpu_runs_plain_version():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("sides,N", [(3, 128), (1, N_MAX + 128)])
+def test_wrapper_on_cpu_takes_what_the_kernel_refuses(sides, N):
+    """The kernel's limits (sides 1 or 2, N up to N_MAX) are not the plain
+    version's: on CPU tensors the wrapper runs it at any sides and N."""
+    rng = np.random.default_rng(N + sides)
+    P = (np.eye(N) + 0.1 * (rng.standard_normal((sides, N, N)) + 1j
+                            * rng.standard_normal((sides, N, N))) / np.sqrt(N))
+    b = rng.standard_normal((sides, N)) + 1j * rng.standard_normal((sides, N))
+    P = torch.from_numpy(P.astype(np.complex64))
+    b = torch.from_numpy(b.astype(np.complex64))
+    calls = dense_gmres.twin_calls
+    x = dense_gmres(P, b, 4, 1)
+    assert dense_gmres.twin_calls == calls + 1
+    torch.testing.assert_close(x, dense_gmres_ref(P, b, 4, 1), rtol=0,
+                               atol=0)
+
+
 @pytest.mark.parametrize("case", ["dtype", "rank", "square", "lane",
                                   "contiguous", "m"])
 def test_wrapper_rejects_bad_input(case):
@@ -67,6 +86,40 @@ def test_wrapper_rejects_bad_input(case):
         m = 0
     with pytest.raises((TypeError, ValueError)):
         dense_gmres(P, b, m, 1)
+
+
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("sides", [1, 2])
+@pytest.mark.parametrize("N", range(128, N_MAX + 1, 128))
+def test_launch_plan(sides, N, n_sm):
+    """K2's launch on an H100 SXM (132 SMs) and PCIe (114 SMs) at the
+    caller's m: every row of P owned by exactly one row block, a block's
+    resident and streamed rows adding up to its rows, the shared memory
+    within a block's 232,448 bytes, and every block co-resident."""
+    pl = plan(sides, N, GMRES_M, n_sm)
+    owners = np.zeros(N, np.int64)
+    for g in range(pl.G):
+        rows = pl.rows(g)
+        assert len(rows) >= 1
+        owners[rows.start:rows.stop] += 1
+        assert pl.resident(g) + pl.streamed(g) == len(rows)
+        assert pl.resident(g) >= 1 and pl.streamed(g) >= 0
+    assert (owners == 1).all()
+    assert pl.smem <= SMEM_MAX
+    assert pl.grid <= n_sm
+
+
+def test_launch_plan_main_path():
+    """At the main path's (2, 1408, 80): 64 row blocks of 22 rows a side on
+    128 of 132 SMs, 18 rows resident and 4 streamed; on 114 SMs, 55 blocks
+    of 26 rows, 17 resident and 9 streamed (more than one a warp)."""
+    assert -(-FUSED_MAX_DIM // 128) * 128 == N_MAX
+    pl = plan(2, N_MAX, GMRES_M, 132)
+    assert (pl.G, pl.R, pl.res, pl.grid) == (64, 22, 18, 130)
+    assert pl.smem == 231152
+    pl = plan(2, N_MAX, GMRES_M, 114)
+    assert (pl.G, pl.R, pl.res, pl.grid) == (55, 26, 17, 112)
+    assert pl.streamed(0) == 9
 
 
 def test_batched_block_diag_inv_equals_jax():

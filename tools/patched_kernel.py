@@ -1,7 +1,7 @@
 """Build a copy of one of the port's kernel sources with one line changed,
-for design measurements (``k1_floor.py``, ``k3_cluster_size.py``).  The
-copy and its library go to the git-ignored ``_build/``; the port's own
-builds are untouched.  Needs nvcc.
+for design measurements (``k1_floor.py``, ``k3_cluster_size.py``,
+``k2_step_profile.py``).  The copy and its library go to the git-ignored
+``_build/``; the port's own builds are untouched.  Needs nvcc.
 """
 import ctypes
 import os

@@ -5,7 +5,9 @@
 exactly ``m`` Arnoldi steps, as ONE cooperative launch of the hand-written
 CUDA kernel ``csrc/dense_gmres.cu``: the counterpart of the Pallas TPU
 kernel ``wavesandeigenvalues_jl_tpu/ops/pallas_gmres.py ::
-build_dense_gmres``.  The source note of the kernel gives its design.
+build_dense_gmres``.  The source note of the kernel gives its design;
+:func:`plan` gives its launch: row blocks per side, rows per block, and
+which rows of P stay in shared memory.
 
 * :func:`dense_gmres_ref` is its plain PyTorch version: the same
   arithmetic (CGS2, complex Givens, clamped norms and back substitution)
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,7 +29,16 @@ from . import cuda_build
 
 #: N must be a multiple of this (the JAX kernel's lane width)
 LANE = 128
+#: the largest N the kernel takes: FUSED_MAX_DIM = 1,400 padded to LANE
+N_MAX = 1408
 _TINY = 1e-37
+#: what csrc/dense_gmres.cu takes: threads (and warps) of a block, shared
+#: memory of a block on an H100, fewest rows a row block owns, row blocks
+#: of a side at most
+THREADS, WARPS = 256, 8
+SMEM_MAX = 232448
+MIN_ROWS = 8
+MAX_G = 132
 
 
 def _norm2(v: torch.Tensor) -> torch.Tensor:
@@ -95,20 +107,98 @@ def dense_gmres_ref(P: torch.Tensor, b: torch.Tensor, m: int,
     return x
 
 
+class Plan(NamedTuple):
+    """The launch of K2 for (sides, N, m) on a card of ``n_sm`` SMs: ``G``
+    row blocks per side, each owning ``R`` consecutive rows (the last one
+    the rest), the first ``res`` of them resident in shared memory and the
+    others streamed (the first ``WARPS`` prefetched one a warp, any more
+    read from L2 in the matvec), plus one Givens block per side; ``smem``
+    bytes of dynamic shared memory a block."""
+    sides: int
+    N: int
+    m: int
+    G: int
+    R: int
+    res: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.sides * (self.G + 1)
+
+    def rows(self, g: int) -> range:
+        """The rows of P that row block g of a side owns."""
+        return range(g * self.R, min(self.N, (g + 1) * self.R))
+
+    def resident(self, g: int) -> int:
+        return min(len(self.rows(g)), self.res)
+
+    def streamed(self, g: int) -> int:
+        return len(self.rows(g)) - self.resident(g)
+
+
+def _row_smem(N: int, m: int, R: int, res: int) -> int:
+    """Bytes of a row block: resident P rows, v, the V slice, w and x rows,
+    a projection, the reduction scratch, an mbarrier (``row_smem`` in the
+    source)."""
+    return (res * N + N + R * m + 2 * R + m + 1 + THREADS) * 8 + 8
+
+
+def _givens_smem(m: int) -> int:
+    """Bytes of a Givens block: Ht, h1, h2, g, sn, y, the reduction scratch
+    and cs."""
+    m1 = m + 1
+    return (m1 * m1 + 5 * m1 + THREADS) * 8 + 4 * m1
+
+
+@functools.cache
+def plan(sides: int, N: int, m: int, n_sm: int) -> Plan:
+    """One row block per SM beside the sides' Givens blocks, with the
+    fewest blocks that give the least rows a block (so G = 64, R = 22 at
+    (2, 1408, m, 132)), and as many resident rows as shared memory holds
+    beside the rest of the block's state.  Raises where the kernel cannot
+    take (sides, N, m)."""
+    if sides not in (1, 2):
+        raise ValueError(f"sides = {sides}: the kernel takes 1 or 2")
+    if N % LANE or not 0 < N <= N_MAX:
+        raise ValueError(f"N = {N} is not a multiple of {LANE} up to {N_MAX}")
+    gmax = min(n_sm // sides - 1, MAX_G)
+    if gmax < 1:
+        raise ValueError(f"{sides} sides do not fit {n_sm} SMs")
+    if m >= THREADS:
+        raise ValueError(f"m = {m}: the kernel takes m < {THREADS}")
+    R = max(MIN_ROWS, -(-N // gmax))
+    G = -(-N // R)
+    fixed = _row_smem(N, m, R, 0)
+    res = min(R, (SMEM_MAX - fixed) // (8 * N)) if fixed < SMEM_MAX else 0
+    if res < 1:
+        raise ValueError(f"(sides, N, m) = ({sides}, {N}, {m}): {R} rows a "
+                         f"block, {max(res, 0)} fit in shared memory")
+    smem = max(_row_smem(N, m, R, res), _givens_smem(m))
+    if smem > SMEM_MAX:
+        raise ValueError(f"m = {m}: the Givens block needs {smem} bytes")
+    return Plan(sides, N, m, G, R, res, smem)
+
+
+@functools.cache
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.cache
 def build() -> dict:
     """Compile ``csrc/dense_gmres.cu`` (once per source hash) and load it:
     {"lib", "path", "seconds", "log"} (see :func:`.cuda_build.load`)."""
     info = cuda_build.load("dense_gmres")
-    lib = info["lib"]
-    lib.dense_gmres_blocks_per_side.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int)]
-    lib.dense_gmres_blocks_per_side.restype = ctypes.c_int
-    lib.dense_gmres_c64.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.dense_gmres_c64.restype = ctypes.c_int
+    bind(info["lib"])
     return info
+
+
+def bind(lib):
+    """Argument types of the kernel's C entry point."""
+    lib.dense_gmres_c64.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.dense_gmres_c64.restype = ctypes.c_int
 
 
 def _check(P: torch.Tensor, b: torch.Tensor, m: int, cycles: int):
@@ -132,6 +222,28 @@ def _check(P: torch.Tensor, b: torch.Tensor, m: int, cycles: int):
         raise ValueError("dense_gmres takes contiguous tensors")
 
 
+def launch(lib, P: torch.Tensor, b: torch.Tensor, m: int, cycles: int,
+           n_sm: int | None = None) -> torch.Tensor:
+    """One launch of the kernel in ``lib`` on CUDA tensors (checked by the
+    caller) with the scratch it needs, planned for a card of ``n_sm`` SMs
+    (default: the tensors' card); returns x."""
+    S, N = b.shape
+    pl = plan(S, N, m, n_sm or sm_count(P.device))
+    x = torch.empty_like(b)
+    W = b.new_empty(S, m + 1, N)
+    part = b.new_empty(S, 2, m * (m + 1) // 2, pl.G)
+    pn = torch.empty(S, m + 1, pl.G, dtype=torch.float32, device=b.device)
+    y = b.new_empty(S, m + 1)
+    sync = torch.zeros(S, 64, dtype=torch.int32, device=b.device)
+    code = lib.dense_gmres_c64(
+        P.data_ptr(), b.data_ptr(), x.data_ptr(), W.data_ptr(),
+        part.data_ptr(), pn.data_ptr(), y.data_ptr(), sync.data_ptr(), S, N,
+        m, cycles, pl.G, pl.R, pl.res,
+        torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, "dense_gmres", code)
+    return x
+
+
 def dense_gmres(P: torch.Tensor, b: torch.Tensor, m: int,
                 cycles: int) -> torch.Tensor:
     """x [sides, N] ≈ P⁻¹b by GMRES(m) with ``cycles`` restarts.  CPU
@@ -143,21 +255,8 @@ def dense_gmres(P: torch.Tensor, b: torch.Tensor, m: int,
     if P.device.type != "cuda":
         raise ValueError(f"dense_gmres has no kernel for {P.device}")
     lib = build()["lib"]
-    S, N = b.shape
     with torch.cuda.device(P.device):
-        G = ctypes.c_int(0)
-        cuda_build.check(lib, "dense_gmres", lib.dense_gmres_blocks_per_side(
-            S, N, m, ctypes.byref(G)))
-        G = G.value
-        x = torch.empty_like(b)
-        V = b.new_empty(S, m + 1, N)
-        part = b.new_empty(S, 3, m + 1, G)
-        y = b.new_empty(S, m + 1)
-        code = lib.dense_gmres_c64(
-            P.data_ptr(), b.data_ptr(), x.data_ptr(), V.data_ptr(),
-            part.data_ptr(), y.data_ptr(), S, N, m, cycles, G,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, "dense_gmres", code)
+        x = launch(lib, P, b, m, cycles)
     dense_gmres.launches += 1
     return x
 
@@ -166,4 +265,5 @@ dense_gmres.launches = 0
 dense_gmres.twin_calls = 0
 
 
-__all__ = ["dense_gmres", "dense_gmres_ref", "build", "LANE"]
+__all__ = ["dense_gmres", "dense_gmres_ref", "build", "plan", "Plan",
+           "LANE", "N_MAX"]

@@ -6,7 +6,9 @@ pushes an NVTX range of the same name so the phase shows up on a profiler
 timeline next to the kernels it launched.  ``report()`` returns the table,
 ``reset()`` clears it.  Host wall time only: a phase that enqueues device
 work without synchronising measures the enqueue.  ``device_ms(fn)`` is
-the device time of one call of ``fn``, from CUDA-graph replays.
+the device time of one call of ``fn``, from CUDA-graph replays;
+``events_ms(fn)`` the same from CUDA events around calls made back to
+back, for calls that graph capture refuses.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def reset():
         _counts.clear()
 
 
-__all__ = ["phase", "report", "reset"]
+__all__ = ["phase", "report", "reset", "device_ms", "events_ms"]
 
 
 def device_ms(fn, n: int = 20, reps: int = 10) -> float:
@@ -94,3 +96,20 @@ def device_ms(fn, n: int = 20, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+def events_ms(fn, n: int = 20) -> float:
+    """Time of one call of ``fn`` (ms) from CUDA events around ``n`` calls
+    made back to back, after 3 warm-up calls: the device time where the
+    calls queue faster than they run."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
