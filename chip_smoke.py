@@ -25,7 +25,9 @@ record:
 
 Needs one CUDA device; exits 1 without one.
 """
+import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -71,6 +73,10 @@ K45_WIDTHS = (128, 16)
 #: chain(20) against the plain chain, globally: 20 applies of float32 sums
 #: in another order, each normalized
 CHAIN_M, CHAIN_RTOL = 20, 1e-5
+#: the warp-per-row CSR SpMM that csrc/window_spmm.cu replaced: a yardstick
+#: timed beside it, never called by the port
+TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+WARP_ROW = os.path.join(TOOLS, "warp_row_spmm.cu")
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -114,12 +120,23 @@ def phase_device():
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together, then load each."""
+    """One nvcc per kernel source, all started together (the port's four,
+    and the warp-per-row yardstick of K4/K5 through
+    ``tools/patched_kernel.build_patched`` with no line changed), then load
+    each."""
     import importlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, TOOLS)
+    from patched_kernel import build_patched
 
     from wavesandeigenvalues_jl_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    info = cuda_build.compile_all()
+    with ThreadPoolExecutor(1) as pool:
+        yardstick = pool.submit(build_patched, "warp_row_spmm", [], [],
+                                "as_is", WARP_ROW)
+        info = cuda_build.compile_all()
+        lib = yardstick.result()
     wall = time.perf_counter() - t0
     for name in cuda_build.KERNELS:
         importlib.import_module(
@@ -129,8 +146,14 @@ def phase_build():
                          if "registers" in ln or "spill" in ln)
         print(f"build: {name} {rec['path']} nvcc {rec['seconds']:.2f} s | "
               f"{ptxas}", flush=True)
-    print(f"build: {len(info)} kernels in {wall:.2f} s of wall, loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {len(info)} kernels and the warp-per-row yardstick in "
+          f"{wall:.2f} s of wall, loaded in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    fn = lib.warp_row_spmm_c64
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _median_ms(fn, reps=20, warmup=3):
@@ -565,6 +588,7 @@ def phase_large_path():
     check(L._window_plan[2] is plan, "operator_apply window: plan rebuilt")
     check(Y.shape == (n, 128) and np.isfinite(Y).all(),
           "operator_apply window: bad output")
+    lp = plan.op.launch_plan(128)
     row, glob = _rowwise_scipy(Y, As, X)
     print(f"main path C (large apply): n={n} nnz={A.nnz} r=128 | mesh + "
           f"octosplit + discretize {family_s:.2f} s | wall first call "
@@ -574,7 +598,10 @@ def phase_large_path():
           f"call {wall:.4f} s | max |Y−Y_ref|/(|A||X|) {row:.3e} (tol "
           f"{K1_RTOL:.0e}), ‖Y−Y_ref‖/‖Y_ref‖ {glob:.3e} (tol "
           f"{LARGE_GLOBAL_RTOL:.0e}) | launches, plain calls {counts} "
-          f"(first call {cold_counts})", flush=True)
+          f"(first call {cold_counts}) | nonzeros outside their tile's ring "
+          f"window {lp.out_of_window}", flush=True)
+    check(lp.out_of_window == 0, f"large apply: {lp.out_of_window} nonzeros "
+          "outside their ring window")
     check(row <= K1_RTOL, f"large apply row-wise error {row:.3e}")
     check(glob < LARGE_GLOBAL_RTOL, f"large apply global error {glob:.3e}")
     for c in (cold_counts, counts):
@@ -594,13 +621,16 @@ def _block_slots(indptr, cols, bs):
     return int(np.bincount(blocks // nbr).max())
 
 
-def phase_compare_k45(L, plan):
+def phase_compare_k45(L, plan, warp_row):
     """The CSR SpMM kernel (K4/K5) against window_spmm_ref on the card, on
-    the reordered 57,210-DOF operator at OMEGA_APPLY, with torch.sparse.mm
-    of the same CSR as yardstick; then chain(20) against the plain chain."""
+    the reordered 57,210-DOF operator at OMEGA_APPLY, over REPEATS launches
+    that must agree bit for bit, with two yardsticks on the same operator
+    and panel: torch.sparse.mm of the same CSR, and the warp-per-row kernel
+    it replaced (``warp_row``); then chain(20) against the plain chain,
+    timed in turns with chain(20) of the replaced kernel."""
     from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import random_panel
     from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
-        WindowSpmm, window_spmm, window_spmm_ref)
+        CHUNK, RING_ROWS, TILE_ROWS, WindowSpmm, window_spmm, window_spmm_ref)
     from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
     L.params[L.eigval] = OMEGA_APPLY
     indptr, cols = plan.op.indptr, plan.op.cols
@@ -618,44 +648,91 @@ def phase_compare_k45(L, plan):
     for r in K45_WIDTHS:
         op = WindowSpmm(indptr.cpu().numpy(), cols.cpu().numpy(),
                         vals.cpu().numpy(), (n, n), nrhs=r)
+        # the plan runs only on the structure tensors it was made from
+        indptr, cols, lp = op.indptr, op.cols, op.launch_plan(r)
         Xd = op.panel(random_panel(n, r, seed=r))
-        Y = window_spmm(indptr, cols, vals, Xd)
         ref = window_spmm_ref(indptr, cols, vals, Xd)
         scale = window_spmm_ref(indptr, cols, vals.abs().to(torch.complex64),
                                 Xd.abs().to(torch.complex64)).real
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(Y).all()), f"K4/K5 r={r}: non-finite")
-        err = (Y - ref).abs().max().item()
-        rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
-        ms = _median_ms(lambda: window_spmm(indptr, cols, vals, Xd))
-        dev_ms = device_ms(lambda: window_spmm(indptr, cols, vals, Xd))
+        err, Ys = _max_err(lambda: window_spmm(indptr, cols, vals, Xd, lp),
+                           ref, f"K4/K5 r={r}")
+        same = all(torch.equal(y, Ys[0]) for y in Ys)
+        rel = max(((y - ref).abs() / scale.clamp_min(1e-30)).max().item()
+                  for y in Ys)
+        del Ys
+        ms = _median_ms(lambda: window_spmm(indptr, cols, vals, Xd, lp))
         plain_ms = _median_ms(lambda: window_spmm_ref(indptr, cols, vals,
                                                       Xd))
         library_ms, library_dev, library = _library_ms(
             lambda: torch.sparse.mm(csr, Xd), "torch.sparse.mm")
+        def warp_row_product(indptr, cols, vals, X):
+            Y = torch.empty_like(X)
+            stream = torch.cuda.current_stream().cuda_stream
+            code = warp_row(indptr.data_ptr(), cols.data_ptr(),
+                            vals.data_ptr(), X.data_ptr(), Y.data_ptr(), n,
+                            X.shape[1], stream)
+            check(code == 0, f"warp-per-row kernel launch failed: {code}")
+            return Y
+        # the two kernels in turns: new, old, old, new
+        kernel = lambda: window_spmm(indptr, cols, vals, Xd, lp)  # noqa: E731
+        old = lambda: warp_row_product(indptr, cols, vals, Xd)  # noqa: E731
+        turns = [device_ms(f) for f in (kernel, old, old, kernel)]
+        dev_ms, old_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+        Yw = old()
+        old_rel = ((Yw - ref).abs() / scale.clamp_min(1e-30)).max().item()
         bound_ms, bound_by = bound(op.stream_bytes, op.flops)
         gbs = op.stream_bytes / (dev_ms * 1e-3) / 1e9
-        print(f"K4/K5 (window_spmm) n={n} nnz={nnz} r={r}: max abs err "
-              f"{err:.3e}, max err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}) | "
-              f"kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
-              f"({gbs:.1f} GB/s of {op.stream_bytes / 1e6:.1f} MB), plain "
+        # what the design moves: the structure once (the chunks of a range
+        # share it through L2), the X rows its streams stage, Y once
+        staged = 8.0 * lp.staged_rows * r
+        moved = (12.0 * nnz + 4.0 * (n + 1) + 8.0 * (lp.tiles.shape[0]
+                 + lp.ranges) + staged + 8.0 * n * r)
+        print(f"K4/K5 (window_spmm) n={n} nnz={nnz} r={r}: plan "
+              f"w={min(CHUNK, r)} x {lp.chunks} chunks, tiles of "
+              f"{TILE_ROWS} rows, ring of {RING_ROWS} rows, {lp.ranges} "
+              f"ranges, {lp.blocks} blocks; {lp.out_of_window} nonzeros "
+              f"outside their window; X staged {lp.staged_rows / n:.3f} x "
+              f"the panel ({staged / 1e6:.1f} MB), {moved / 1e6:.1f} MB "
+              f"moved at most ({moved / (dev_ms * 1e-3) / 1e9:.1f} GB/s) | "
+              f"over {REPEATS} launches max abs err {err:.3e}, max "
+              f"err/(|A||X|) {rel:.3e} (tol {K1_RTOL:.0e}), every launch the "
+              f"same bits: {same} | kernel {ms:.4f} ms a call, {dev_ms:.4f} "
+              f"ms on the device ({gbs:.1f} GB/s of "
+              f"{op.stream_bytes / 1e6:.1f} MB; turns new/old/old/new "
+              f"{turns[0]:.4f} / {turns[1]:.4f} / {turns[2]:.4f} / "
+              f"{turns[3]:.4f} ms), warp-per-row kernel {old_ms:.4f} ms on "
+              f"the device (err/(|A||X|) {old_rel:.3e}), plain "
               f"{plain_ms:.4f} ms, {library} | bound {bound_ms:.4f} ms "
-              f"({bound_by}; {op.flops / 1e9:.4f} GFLOP)", flush=True)
+              f"({bound_by}; {op.flops / 1e9:.4f} GFLOP), "
+              f"{bound_ms / dev_ms * 100:.1f} % of it on the device",
+              flush=True)
         check(rel <= K1_RTOL, f"K4/K5 r={r} disagrees with its plain "
               f"version: {rel:.3e}")
+        check(same, f"K4/K5 r={r}: launches differ")
         out[r] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms, "device_ms": dev_ms,
-                  "library_device_ms": library_dev}
+                  "library_device_ms": library_dev,
+                  "replaced_kernel_device_ms": old_ms}
         if r == 128:
-            chain, plain_chain = op.chain(CHAIN_M), op.chain(
-                CHAIN_M, window_spmm_ref)
+            chain, plain_chain, old_chain = (
+                op.chain(CHAIN_M), op.chain(CHAIN_M, window_spmm_ref),
+                op.chain(CHAIN_M, warp_row_product))
             Yc, Yp = chain(Xd), plain_chain(Xd)
             crel = ((Yc - Yp).norm() / Yp.norm()).item()
-            chain_ms = _median_ms(lambda: chain(Xd)) / CHAIN_M
+            orel = ((old_chain(Xd) - Yp).norm() / Yp.norm()).item()
+            # the chain of each kernel in turns: new, old, old, new
+            cturns = [_median_ms(lambda f=f: f(Xd)) / CHAIN_M
+                      for f in (chain, old_chain, old_chain, chain)]
+            chain_ms = min(cturns[0], cturns[3])
+            old_chain_ms = min(cturns[1], cturns[2])
             print(f"K4/K5 chain({CHAIN_M}): {chain_ms:.4f} ms per apply "
-                  f"(apply + normalization) | against the plain chain "
-                  f"‖ΔY‖/‖Y‖ {crel:.3e} (tol {CHAIN_RTOL:.0e})", flush=True)
+                  f"(apply + normalization, a call), with the warp-per-row "
+                  f"kernel {old_chain_ms:.4f} ms (turns new/old/old/new "
+                  + " / ".join(f"{t:.4f}" for t in cturns) + ") | against "
+                  f"the plain chain ‖ΔY‖/‖Y‖ {crel:.3e} (tol "
+                  f"{CHAIN_RTOL:.0e}), the warp-per-row chain's {orel:.3e}",
+                  flush=True)
             check(bool(torch.isfinite(Yc).all()) and crel <= CHAIN_RTOL,
                   f"chain({CHAIN_M}) disagrees with the plain chain: {crel}")
     return out
@@ -666,7 +743,7 @@ def main():
         active_rijke_family
     t_start = time.perf_counter()
     phase_device()
-    phase_build()
+    warp_row = phase_build()
     k3 = phase_compare_k3()
 
     t0 = time.perf_counter()
@@ -682,7 +759,7 @@ def main():
     k1 = phase_compare_k1(A)
     t0 = time.perf_counter()
     large_counts, L57k, plan = phase_large_path()
-    k45 = phase_compare_k45(L57k, plan)
+    k45 = phase_compare_k45(L57k, plan, warp_row)
     t_end = time.perf_counter()
     print(f"path C phases: {t_end - t0:.2f} s of the run's "
           f"{t_end - t_start:.2f} s", flush=True)

@@ -29,9 +29,10 @@ from wavesandeigenvalues_jl_tpu_torch.ops.sparse import CSR
 from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (S_MAX,
                                                                slab_thomas,
                                                                slab_thomas_ref)
-from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (WindowSpmm,
-                                                               window_spmm,
-                                                               window_spmm_ref)
+from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
+    WindowSpmm, launch as window_launch, window_spmm, window_spmm_ref)
+from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import \
+    build as window_build
 
 pytestmark = pytest.mark.cuda
 
@@ -305,32 +306,89 @@ def _banded(n, band, seed=0, deg=12):
     return A
 
 
-@pytest.mark.parametrize("r", [128, 16, 260])
-def test_window_spmm_matches_twin(cuda, r):
-    """The CSR SpMM kernel (K4/K5) against its plain version on the card on
-    a banded operator, row-wise to 1e-6 (float32 sums in another order);
-    r = 260 runs three column tiles, the last one partial."""
-    A = _banded(2500, 800)
-    op = WindowSpmm.from_csr(A, nrhs=r, device=cuda)
-    Xd = op.panel(random_panel(2500, r, seed=r))
-    launches, calls = window_spmm.launches, window_spmm.twin_calls
-    Y = op.apply(Xd)
+def _check_window(op, Xd, outs):
+    """Every output of ``outs`` (launches on Xd) row-wise within 1e-6 of
+    the plain version (float32 sums in another order), all the same
+    bits."""
     torch.cuda.synchronize()
-    assert (window_spmm.launches, window_spmm.twin_calls) == \
-        (launches + 1, calls)
     ref = window_spmm_ref(op.indptr, op.cols, op.vals, Xd)
     scale = window_spmm_ref(op.indptr, op.cols,
                             op.vals.abs().to(torch.complex64),
                             Xd.abs().to(torch.complex64)).real
-    rel = ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item()
-    assert rel <= 1e-6
+    for Y in outs:
+        assert torch.equal(Y, outs[0])
+        assert ((Y - ref).abs() / scale.clamp_min(1e-30)).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("r", [128, 16, 260])
+def test_window_spmm_matches_twin(cuda, r):
+    """The CSR SpMM kernel (K4/K5) against its plain version on the card on
+    a banded operator whose band exceeds the ring (so some nonzeros are
+    read from global memory), on REPEATS launches; r = 260 ends on a ragged
+    column chunk."""
+    A = _banded(2500, 800)
+    op = WindowSpmm.from_csr(A, nrhs=r, device=cuda)
+    assert op.launch_plan(r).out_of_window > 0
+    Xd = op.panel(random_panel(2500, r, seed=r))
+    launches, calls = window_spmm.launches, window_spmm.twin_calls
+    outs = [op.apply(Xd) for _ in range(REPEATS)]
+    assert (window_spmm.launches, window_spmm.twin_calls) == \
+        (launches + REPEATS, calls)
+    _check_window(op, Xd, outs)
+
+
+def _wide_band():
+    """Identity plus the two far corners (the operator the JAX K4 refuses,
+    tests/test_window_spmm.py:39-49)."""
+    n = 4096
+    A = sp.csr_matrix((np.ones(2), ([0, n - 1], [n - 1, 0])), shape=(n, n))
+    return (A + sp.eye(n)).tocsr().astype(np.complex128)
+
+
+def _octosplit_2996():
+    """The reordered 2,996-DOF octosplit passive family at 2π·300."""
+    L = large_operator_family(n_rings=2, nz_cold=10, nz_hot=10)
+    L.params[L.eigval] = 2 * np.pi * 300.0
+    A = L.assemble({})
+    Ar = permute_csr(A, cuthill_mckee(A))
+    return sp.csr_matrix((Ar.data, Ar.indices, Ar.indptr), shape=Ar.shape)
+
+
+@pytest.mark.parametrize("name", ["wide-band", "octosplit-2996"])
+def test_window_spmm_operators(cuda, name):
+    """The kernel on REPEATS launches at r = 128 on the wide-band operator
+    (its two corners outside every ring window, read from global memory)
+    and on the reordered 2,996-DOF octosplit operator (every nonzero in
+    its window)."""
+    A = _wide_band() if name == "wide-band" else _octosplit_2996()
+    op = WindowSpmm.from_csr(A, nrhs=128, device=cuda)
+    assert op.launch_plan(128).out_of_window == (2 if name == "wide-band"
+                                                 else 0)
+    Xd = op.panel(random_panel(A.shape[0], 128, seed=8))
+    _check_window(op, Xd, [op.apply(Xd) for _ in range(REPEATS)])
+
+
+@pytest.mark.parametrize("name", ["banded-2500", "octosplit-2996"])
+def test_window_spmm_plan_of_fewer_sms(cuda, name):
+    """The launch plan of an H100 PCIe's 114 SMs (14 ranges at r = 128),
+    run on this card, on REPEATS launches."""
+    A = _banded(2500, 800) if name == "banded-2500" else _octosplit_2996()
+    op = WindowSpmm.from_csr(A, nrhs=128, device=cuda)
+    lp = op.launch_plan(128, n_sm=114)
+    assert lp.blocks <= 114
+    Xd = op.panel(random_panel(A.shape[0], 128, seed=9))
+    lib = window_build()["lib"]
+    _check_window(op, Xd, [window_launch(lib, op.vals, Xd, lp)
+                           for _ in range(REPEATS)])
 
 
 def test_window_spmm_refuses(cuda):
-    """The wrapper raises on a CPU/CUDA mix and on a width the kernel does
-    not take, and launches nothing."""
+    """The wrapper raises on a CPU/CUDA mix, on a width the kernel does
+    not take, without a launch plan, on another width's plan and on the
+    plan of another operator of the same size, and launches nothing."""
     A = _banded(300, 40)
     op = WindowSpmm.from_csr(A, device=cuda)
+    twin = WindowSpmm.from_csr(A, device=cuda)
     launches = window_spmm.launches
     X = random_panel(300, 8)
     with pytest.raises(ValueError):
@@ -339,6 +397,11 @@ def test_window_spmm_refuses(cuda):
         window_spmm(op.indptr.cpu(), op.cols, op.vals, op.panel(X))
     with pytest.raises(ValueError, match="multiple"):
         window_spmm(op.indptr, op.cols, op.vals, op.panel(X[:, :6]))
+    with pytest.raises(ValueError, match="launch plan"):
+        window_spmm(op.indptr, op.cols, op.vals, op.panel(X))
+    for other in (op.launch_plan(16), twin.launch_plan(128)):
+        with pytest.raises(ValueError, match="launch plan"):
+            window_spmm(op.indptr, op.cols, op.vals, op.panel(X), other)
     assert window_spmm.launches == launches
 
 

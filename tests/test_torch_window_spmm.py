@@ -37,9 +37,11 @@ from wavesandeigenvalues_jl_tpu_torch.ops.device import (
 from wavesandeigenvalues_jl_tpu_torch.ops.sparse import (CSR,
                                                          StackedOperator,
                                                          csr_to_ell)
-from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (WindowSpmm,
-                                                               window_spmm,
-                                                               window_spmm_ref)
+from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
+                                                          permute_csr)
+from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
+    CHUNK, CONSUMER_WARPS, RING_ROWS, RING_STAGES, ROWS_A_WARP, STAGE_ROWS,
+    TILE_ROWS, WindowSpmm, plan, window_spmm, window_spmm_ref)
 
 torch.set_num_threads(2)
 
@@ -153,12 +155,19 @@ def test_ref_matches_jax_window_kernels(name):
     assert _rowwise(Y, Yj, A, X) <= PORT_VS_JAX
 
 
-def test_wide_band_beyond_the_tpu_window():
-    """The operator K4 refuses (tests/test_window_spmm.py:39-49): the per-
-    row gather reaches any column, so the port gets the right Y."""
+def _wide_band():
+    """The operator K4 refuses (tests/test_window_spmm.py:39-49): the
+    identity and the two far corners."""
     n = 4 * TILE
     A = sp.csr_matrix((np.ones(2), ([0, n - 1], [n - 1, 0])), shape=(n, n))
-    A = (A + sp.eye(n)).tocsr().astype(np.complex128)
+    return (A + sp.eye(n)).tocsr().astype(np.complex128)
+
+
+def test_wide_band_beyond_the_tpu_window():
+    """The operator K4 refuses: the kernel reads a nonzero outside its
+    tile's ring window from global memory, so the port gets the right Y."""
+    A = _wide_band()
+    n = A.shape[0]
     with pytest.raises(ValueError, match="bandwidth"):
         WindowBsr.from_csr(CSRJax(A.indptr, A.indices, A.data, A.shape))
     X = random_panel(n, 8, seed=4)
@@ -209,6 +218,175 @@ def test_wrapper_checks_and_counts():
     with pytest.raises(ValueError, match="row pointer"):
         WindowSpmm(A.indptr[:-1], A.indices, A.data, A.shape, device="cpu")
     assert op.stream_bytes == 12 * A.nnz + 4 * 301 + 8 * 600 * 8
+
+
+def test_plan_is_tied_to_its_structure():
+    """A launch plan holds the structure tensors it was made from and the
+    wrapper takes it only with those very tensors at its width: a plan of
+    another operator of the same structure, of the same arrays copied, or
+    of another width is refused (on CPU tensors too)."""
+    A = _banded(300, 40)
+    op, twin = _port(A, 8), _port(A, 8)
+    X = op.panel(random_panel(300, 8))
+    lp = plan(op.indptr, op.cols, 8, 132)
+    assert lp.indptr is op.indptr and lp.cols is op.cols
+    copied = plan(A.indptr, A.indices, 8, 132)
+    for field in ("tiles", "streams", "slots", "order"):
+        assert torch.equal(getattr(lp, field), getattr(copied, field))
+    np.testing.assert_array_equal(
+        window_spmm(op.indptr, op.cols, op.vals, X, lp).numpy(),
+        op.apply(X).numpy())
+    for other in (plan(twin.indptr, twin.cols, 8, 132), copied,
+                  plan(op.indptr, op.cols, 16, 132)):
+        with pytest.raises(ValueError, match="launch plan"):
+            window_spmm(op.indptr, op.cols, op.vals, X, other)
+
+
+def _octosplit_2996():
+    """The 2,996-DOF octosplit passive family at 2π·300 in Cuthill–McKee
+    order (the operator of path C, cut to the test family)."""
+    L = large_operator_family(n_rings=2, nz_cold=10, nz_hot=10)
+    L.params[L.eigval] = OMEGA
+    A = L.assemble({})
+    Ar = permute_csr(A, cuthill_mckee(A))
+    return sp.csr_matrix((Ar.data, Ar.indices, Ar.indptr), shape=Ar.shape)
+
+
+def _walk(lp, t0, t1, q):
+    """The tiles of range q in the order its blocks walk them."""
+    return range(t1 - 1, t0 - 1, -1) if q % 2 else range(t0, t1)
+
+
+def _outside_brute_force(A, q_of_tile, n_tiles):
+    """Nonzeros outside their tile's ring window, tile by tile from the
+    definitions: walking forward, the window starts at the stage of the
+    least column of the tile and the range's later tiles; walking
+    backward, it ends at the stage of the largest column of the tile and
+    the range's earlier tiles."""
+    out = 0
+    for t in range(n_tiles):
+        q = q_of_tile[t]
+        rows = A[t * TILE_ROWS:(t + 1) * TILE_ROWS]
+        if rows.nnz == 0:
+            continue
+        same = np.flatnonzero(q_of_tile == q)
+        if q % 2 == 0:
+            rest = A[t * TILE_ROWS:(same[-1] + 1) * TILE_ROWS]
+            start = rest.indices.min() // STAGE_ROWS * STAGE_ROWS
+            out += int((rows.indices >= start + RING_ROWS).sum())
+        else:
+            rest = A[same[0] * TILE_ROWS:(t + 1) * TILE_ROWS]
+            end = (rest.indices.max() // STAGE_ROWS + 1) * STAGE_ROWS
+            out += int((rows.indices < end - RING_ROWS).sum())
+    return out
+
+
+def _ring_walk(A, lp, X):
+    """Y from the plan alone, as the kernel's blocks would form it: each
+    range's producer stages X while the ring has a free buffer, each tile
+    reads its in-window nonzeros' X rows from the ring buffer its slot
+    names (which must hold that row's stage then) and the others from X,
+    and then releases the stages before the next tile's first."""
+    n = A.shape[0]
+    n_tiles = lp.tiles.shape[0]
+    tiles, streams, slots = (lp.tiles.numpy(), lp.streams.numpy(),
+                             lp.slots.numpy())
+    Xr = np.empty((len(slots), X.shape[1]), X.dtype)
+    for q in range(lp.ranges):
+        t0, t1 = q * n_tiles // lp.ranges, (q + 1) * n_tiles // lp.ranges
+        first, count = streams[q]
+        stage = (lambda i: first - i) if q % 2 else (lambda i: first + i)
+        ring = {}                                 # buffer -> X stage
+        loaded = released = 0
+        walk = list(_walk(lp, t0, t1, q))
+        for p, t in enumerate(walk):
+            while loaded < count and loaded - RING_STAGES < released:
+                ring[stage(loaded) % RING_STAGES] = stage(loaded)
+                loaded += 1
+            far, near = tiles[t]
+            assert far < loaded                   # never waits forever
+            for k in range(A.indptr[t * TILE_ROWS],
+                           A.indptr[min((t + 1) * TILE_ROWS, n)]):
+                s = slots[k]
+                if s < 0:
+                    Xr[k] = X[-1 - s]
+                    continue
+                j = ring[s // STAGE_ROWS]
+                row = j * STAGE_ROWS + s % STAGE_ROWS
+                assert row == A.indices[k]
+                i = first - j if q % 2 else j - first
+                assert near <= i <= far
+                Xr[k] = X[row]
+            if p + 1 < len(walk):
+                released = max(released, min(tiles[walk[p + 1]][1], count))
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    Y = np.zeros((n, X.shape[1]), complex)
+    np.add.at(Y, rows, A.data[:, None] * Xr)
+    return Y
+
+
+@pytest.mark.parametrize("r,n_sm", [(128, 132), (128, 114), (16, 132),
+                                    (260, 132)])
+@pytest.mark.parametrize("name", ["octosplit-2996", "banded-2500",
+                                  "wide-band"])
+def test_launch_plan(name, r, n_sm):
+    """The kernel's launch plan (ops/window_spmm.plan) on three operators,
+    at the main path's r = 128 on an H100 SXM's 132 SMs and an H100 PCIe's
+    114, at r = 16, and at r = 260 (a ragged last chunk).  The blocks fit
+    the SMs and the ranges cover the tiles; each tile's rows are dealt out
+    to the warps longest first, group g of ROWS_A_WARP to warp g − t;
+    along each range's walk the window never moves back; every nonzero in
+    its tile's window lies in a stage the tile waits for, at ring row
+    col % RING_ROWS; the count of nonzeros outside equals a brute-force
+    count (0 on the reordered octosplit operator); and a walk of the ring
+    by the plan alone, its producer running ahead as far as the ring
+    allows, forms the product."""
+    A = {"octosplit-2996": _octosplit_2996,
+         "banded-2500": lambda: _banded(2500, 800),
+         "wide-band": _wide_band}[name]()
+    n = A.shape[0]
+    lp = plan(A.indptr, A.indices, r, n_sm)
+    n_tiles = -(-n // TILE_ROWS)
+    assert lp.chunks == -(-r // CHUNK) and lp.blocks <= n_sm
+    assert lp.tiles.shape == (n_tiles, 2) and lp.slots.shape == (A.nnz,)
+    q_of_tile = np.empty(n_tiles, int)
+    tiles, streams = lp.tiles.numpy(), lp.streams.numpy()
+    for q in range(lp.ranges):
+        t0, t1 = q * n_tiles // lp.ranges, (q + 1) * n_tiles // lp.ranges
+        assert t1 > t0
+        q_of_tile[t0:t1] = q
+        walk = list(_walk(lp, t0, t1, q))
+        edge = lp.window[walk, 1 if q % 2 else 0]
+        assert np.all(np.diff(edge) * (-1 if q % 2 else 1) >= 0)
+        assert np.all(np.diff(tiles[walk, 1]) >= 0)
+        for t in walk:
+            far, near = tiles[t]
+            if far >= 0:
+                assert 0 <= near <= far < streams[q, 1]
+                assert far - near < RING_STAGES
+    length = np.diff(A.indptr)
+    order = lp.order.numpy().reshape(n_tiles, CONSUMER_WARPS, ROWS_A_WARP)
+    for t in range(n_tiles):
+        rows = np.roll(order[t], t, axis=0).reshape(-1)
+        real = rows[rows >= 0]
+        np.testing.assert_array_equal(
+            np.sort(real), np.arange(t * TILE_ROWS, min(n, (t + 1) *
+                                                       TILE_ROWS)))
+        assert np.all(rows[len(real):] == -1)
+        assert np.all(np.diff(length[real]) <= 0)
+    slots = lp.slots.numpy()
+    inside = slots >= 0
+    assert np.all(slots[inside] == A.indices[inside] % RING_ROWS)
+    assert np.all(-1 - slots[~inside] == A.indices[~inside])
+    assert lp.out_of_window == int((~inside).sum()) == \
+        _outside_brute_force(A, q_of_tile, n_tiles)
+    if name == "octosplit-2996":
+        assert lp.out_of_window == 0
+    else:
+        assert lp.out_of_window > 0
+    X = random_panel(n, 4, seed=r).astype(np.complex128)
+    np.testing.assert_allclose(_ring_walk(A, lp, X), A @ X, rtol=1e-12,
+                               atol=1e-12)
 
 
 def _random_sparse(n, per_row, seed):

@@ -11,10 +11,11 @@ each of the dense GMRES kernel K2 (:func:`..ops.dense_gmres.dense_gmres`);
 larger n to the slab engine :class:`.fused_slab.FusedSlabPencilSolver`
 (kernel K3).  Both share the Newton step of :class:`.pencil.PencilSolver`.
 
-No failure is hidden: where the JAX function returns ``None`` and lets
-its host engine run, the port raises — an engine error propagates, a
-non-finite dz raises with its iteration number, and the polish lets scipy
-errors propagate.
+No device failure is hidden: where the JAX function returns ``None`` and
+lets its host engine run, the port raises — an engine error propagates and
+a non-finite dz raises with its iteration number.  The host polish is
+wrapped as in the JAX package: a linear-algebra error there keeps the
+device iterate.
 """
 from __future__ import annotations
 
@@ -208,35 +209,44 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     # ---- host complex128 polish steps -----------------------------------
     # The device loop lands inside the Newton basin (dev_tol above); the
     # last digits come from 1-2 warm-started host Newton steps (sparse LU
-    # + shift-invert — the reference's per-iteration machinery).
-    for _ in range(3):
-        if n_it >= maxiter:
-            break
-        with phase("fused_local.polish_step"):
-            L.params[eig] = z
-            L.params[aux] = 0.0
-            A = L(z)
-            M = L.aux_weight()
-            F = factorize(A, check=True)
-            lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8, factor=F)
-            lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj, m=8,
-                                           factor=F, adjoint=True)
-            lam_p = complex(lam_arr[0])
-            vh = V[:, 0]
-            wh = W[:, 0]
-            A1 = L(z, 1)
-            den = np.vdot(wh, M @ vh)
-            lam_d = np.vdot(wh, A1 @ vh) / den
-            dz = -lam_p / lam_d
-            if not (np.isfinite(dz) and abs(dz) < 1e-2 * max(abs(z), 1.0)):
+    # + shift-invert — the reference's per-iteration machinery).  As in the
+    # JAX package, a polish step the host numerics refuse (SuperLU's
+    # RuntimeError, a singular dense LU, a LAPACK or ARPACK error) keeps
+    # the device iterate.  The polish is numpy and scipy on the host and
+    # touches no tensor, so this hides no kernel and no device fault.
+    try:
+        for _ in range(3):
+            if n_it >= maxiter:
                 break
-            z0 = z
-            z = z + dz
-            v, v_adj = vh, wh
-            lam = lam_p
-            n_it += 1
-            if abs(dz) <= tol_s:
-                break
+            with phase("fused_local.polish_step"):
+                L.params[eig] = z
+                L.params[aux] = 0.0
+                A = L(z)
+                M = L.aux_weight()
+                F = factorize(A, check=True)
+                lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8,
+                                               factor=F)
+                lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj, m=8,
+                                               factor=F, adjoint=True)
+                lam_p = complex(lam_arr[0])
+                vh = V[:, 0]
+                wh = W[:, 0]
+                A1 = L(z, 1)
+                den = np.vdot(wh, M @ vh)
+                lam_d = np.vdot(wh, A1 @ vh) / den
+                dz = -lam_p / lam_d
+                if not (np.isfinite(dz)
+                        and abs(dz) < 1e-2 * max(abs(z), 1.0)):
+                    break
+                z0 = z
+                z = z + dz
+                v, v_adj = vh, wh
+                lam = lam_p
+                n_it += 1
+                if abs(dz) <= tol_s:
+                    break
+    except (RuntimeError, np.linalg.LinAlgError):
+        pass                                      # keep the device result
 
     L.params[eig] = z
     L.params[aux] = lam

@@ -41,7 +41,7 @@ from . import cuda_build
 from .device import BsrOperator, DeviceStackedOperator
 from .reorder import cuthill_mckee, permute_csr
 from .sparse import CSR, StackedOperator
-from .window_spmm import WindowSpmm, window_spmm
+from .window_spmm import WindowSpmm
 
 #: block sizes the kernel is built for, and its panel-column tile
 BLOCK_SIZES = (32, 64, 128)
@@ -316,8 +316,7 @@ class WindowPlan:
         vals = self.family.data(L.coefficients()).to(torch.complex64)
         Xd = torch.from_numpy(np.ascontiguousarray(X, np.complex64)).to(
             self.perm.device)[self.perm]
-        Y = window_spmm(self.op.indptr, self.op.cols, vals, Xd)
-        return Y[self.inv].cpu().numpy()
+        return self.op.apply(Xd, vals)[self.inv].cpu().numpy()
 
 
 def _plan(L, attr: str, key, build):

@@ -56,15 +56,20 @@ class DenseLU(Factorization):
 
 class SparseLU(Factorization):
     """Sparse LU (SuperLU) — the direct counterpart of the reference's
-    UMFPACK factorization (SparseArrays.lu).  SuperLU's own errors (an
-    exactly singular matrix raises RuntimeError) propagate."""
+    UMFPACK factorization (SparseArrays.lu).  A matrix SuperLU refuses (an
+    exactly singular one raises RuntimeError) gives ``ok = False``, as in
+    the JAX package, and :func:`factorize` retries it as a dense LU."""
 
     def __init__(self, A: CSR):
         import scipy.sparse as sp
         import scipy.sparse.linalg as spla
         M = sp.csr_matrix((A.data.astype(CDTYPE), A.indices, A.indptr),
                           shape=A.shape).tocsc()
-        self.F = spla.splu(M)
+        try:
+            self.F = spla.splu(M)
+        except RuntimeError:
+            self.F, self._ok = None, False
+            return
         u = self.F.U.diagonal()
         self._ok = bool(np.all(np.isfinite(u)) and np.all(u != 0))
 
@@ -83,12 +88,16 @@ SPARSE_LU_MIN_DIM = 600
 def factorize(A: Union[CSR, np.ndarray], check: bool = False) -> Factorization:
     """Factorize for repeated shifted solves (the UMFPACK role,
     Householder.jl:100-101): SuperLU from ``SPARSE_LU_MIN_DIM`` on, dense
-    LAPACK LU below.  Unlike the JAX package's ``factorize`` there is no
-    dense retry of a failed sparse factorization."""
-    if isinstance(A, CSR) and A.shape[0] >= SPARSE_LU_MIN_DIM:
-        F = SparseLU(A)
-    else:
-        F = DenseLU(A.to_dense() if isinstance(A, CSR) else A)
+    LAPACK LU below, and, as in the JAX package's host ``factorize``, a
+    dense LU retry of a sparse factorization that failed.  ``check``
+    raises :class:`SingularMatrixError` only if the dense LU fails too."""
+    if isinstance(A, CSR):
+        if A.shape[0] >= SPARSE_LU_MIN_DIM:
+            F = SparseLU(A)
+            if F.ok:
+                return F
+        A = A.to_dense()
+    F = DenseLU(A)
     if check and not F.ok:
         raise SingularMatrixError("LU factorization failed (singular matrix)")
     return F
