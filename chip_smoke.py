@@ -15,7 +15,11 @@ their real size, each with the launch counters set to 0 just before it:
   only), at bs = 32, 64, 128;
 * path C, the large-operator apply: ``operator_apply(kernel="window")`` on
   the 57,210-DOF octosplit passive family and a 128-column panel through
-  the CSR SpMM kernel that stands for K4 and K5.
+  the CSR SpMM kernel that stands for K4 and K5;
+* path D, the contour: Beyn on path C's family through the slab direct
+  solver (``ops/slab_solve.SlabSolver``: plain PyTorch, no kernel of its
+  own), checked against the pinned JAX host Beyn modes, then the 437-DOF
+  passive family through the "host", "dense" and "slab" backends.
 
 Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -77,6 +81,33 @@ CHAIN_M, CHAIN_RTOL = 20, 1e-5
 #: timed beside it, never called by the port
 TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
 WARP_ROW = os.path.join(TOOLS, "warp_row_spmm.cu")
+#: Beyn's contour of tests/test_slab_solve.py:86-88 (150–1000 Hz at ±5 Hz;
+#: 4 edges × 24 nodes) and its arguments
+CONTOUR = [2 * np.pi * (150 - 5j), 2 * np.pi * (1000 - 5j),
+           2 * np.pi * (1000 + 5j), 2 * np.pi * (150 + 5j)]
+CONTOUR_KW = dict(l=8, N=24, rtol=1e-12, res_tol=1e-6)
+#: JAX host Beyn (complex128 SuperLU per node) on path C's 57,210-DOF
+#: passive family, computed with the JAX package as
+#:   mesh = octosplit(rijke_mesh(n_rings=4, nz_cold=58, nz_hot=58))
+#:   L = discretize(mesh, {"Interior": ("interior", ()),
+#:                         "Outlet": ("admittance", ("Y", 1e15))},
+#:                  mesh.generate_field(c, order="lin"))
+#:   beyn(L, CONTOUR, l=8, N=24, rtol=1e-12, res_tol=1e-6, backend="host")
+#: with c = sqrt(1.4·287.05·T), T = 300 K for z < 0 and 1200 K above
+OMEGA_57K = (1710.9389595206271 - 6.717168685029256e-09j,
+             4363.358767721035 - 6.6306878059490884e-09j)
+#: the same call on the 437-DOF passive family (rijke_mesh(n_rings=2,
+#: nz_cold=10, nz_hot=10))
+OMEGA_437_PASSIVE = (1713.1997319995933 + 5.834139044672012e-10j,
+                     4373.996493943504 + 1.296587899289208e-09j)
+#: each 57,210-DOF mode within this × f of JAX's; the bar of the slab
+#: solves' max relres: the refine_tol of the JAX package's own slab contour
+#: run (SCALE.json "solver"; the solver refines toward its default 1e-11);
+#: the small backends within 1e-6 Hz
+CONTOUR_RTOL, CONTOUR_RELRES, SMALL_HZ_ATOL = 1e-7, 1e-8, 1e-6
+#: the JAX package's sweep cap of the slab refinement (the port's is 12),
+#: run once more on the 57,210-DOF contour to show what it leaves
+JAX_SWEEP_CAP = 4
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -117,6 +148,7 @@ def phase_device():
           f"{torch.version.cuda} | tf32 matmul={tf32[0]} cudnn={tf32[1]} "
           f"fp32 precision={tf32[2]}", flush=True)
     check(tf32 == (False, False, "highest"), f"TF32 not off: {tf32}")
+    return card
 
 
 def phase_build():
@@ -738,11 +770,147 @@ def phase_compare_k45(L, plan, warp_row):
     return out
 
 
+def _hz(Om):
+    return np.sort(np.asarray(Om).real) / 2 / np.pi
+
+
+def _contour_line(tag, L, card, part, chunk, Om, res, info, wall, peak,
+                  counts):
+    """Print one 57,210-DOF contour run; returns the modes' relative
+    errors against the pinned JAX host Beyn (inf if the count differs)."""
+    m, s = part.m, part.smax
+    tm = info["solver_timings"]
+    nodes = 4 * CONTOUR_KW["N"]
+    chunks = tm["factor_steps"] // m
+    shifts = chunks * chunk                   # factored, padding included
+    # the factorization's fp32 operations a shift and slab at the padded
+    # width s: L·C, the LU, the solve against I and Dt⁻¹U (complex: 8
+    # real operations a multiply-add), over the card's fp32 peak
+    flops = (8 + 8 / 3 + 8 + 8) * s ** 3
+    floor_s = shifts * m * flops / FP32_FLOPS_PER_S
+    f, f_ref = _hz(Om), _hz(OMEGA_57K)
+    rel = (np.abs(f - f_ref) / f_ref if len(f) == len(f_ref)
+           else np.full(len(f_ref), np.inf))
+    times = " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in sorted(tm.items()))
+    from wavesandeigenvalues_jl_tpu_torch.ops.slab_solve import SLAB_BUDGET
+    fmt = lambda xs: "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"  # noqa
+    sig = info["sigma"]
+    print(f"main path D (contour{tag}) on {card}: n={L.size} slabs m={m} "
+          f"s_max={s} (median {int(np.median(part.sizes))}) | {nodes} nodes "
+          f"in {chunks} chunks of {chunk} shifts (budget {SLAB_BUDGET:.1e} "
+          f"B) | modes Hz {', '.join(f'{x:.8f}' for x in f)} rel err "
+          f"{fmt(rel)} (tol {CONTOUR_RTOL:.0e}) | eigenpair residuals "
+          f"{fmt(res)} (res_tol {CONTOUR_KW['res_tol']:.0e}) | max relres "
+          f"{info['max_relres']:.3e} (bar {CONTOUR_RELRES:.0e}), chunks "
+          f"above refine_tol {len(info['unconverged'])}, "
+          f"{tm['resolve_steps'] // m} re-solve sweeps over the chunks | "
+          f"Hankel singular values {fmt(sig)}, sigma_max/sigma_2 "
+          f"{sig[0] / sig[1]:.3e} | wall {wall:.3f} s | solver timings: "
+          f"{times} | peak device memory {peak / 2**20:.1f} MiB | "
+          f"factorization floor {floor_s:.3f} s ({flops / 1e9:.3f} GFLOP a "
+          f"shift and slab, {shifts} shifts x {m} slabs at 67 TFLOP/s fp32) "
+          f"| launches, plain calls {counts}", flush=True)
+    return rel
+
+
+def phase_contour_path(L, card):
+    """Path D: Beyn on the card at 57,210 DOF through the slab direct
+    solver, the call a user makes (``beyn(..., backend="slab")`` at the
+    solver's defaults), with the counters set to 0 just before it (the
+    slab solver is plain PyTorch: no kernel of the port runs here).
+    Checks the mode count and each mode within CONTOUR_RTOL·f of the
+    pinned JAX host Beyn, and max relres ≤ CONTOUR_RELRES.  Then the same
+    call at the JAX package's sweep cap, whose unconverged chunks must be
+    reported; its modes are printed, not held to the bar."""
+    import warnings
+
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
+    from wavesandeigenvalues_jl_tpu_torch.ops.slab_solve import (
+        SlabPartition, auto_chunk)
+    check(L.size == LARGE_DIM, f"contour family dimension {L.size}")
+    S = L._stack()
+    part = SlabPartition(S.indptr, S.indices, L.size)
+    chunk = auto_chunk(part)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    Om, P, res, info = beyn(L, CONTOUR, backend="slab",
+                            return_residuals=True, return_info=True,
+                            **CONTOUR_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = _contour_line("", L, card, part, chunk, Om, res, info, wall, peak,
+                        counts)
+    check(len(Om) == len(OMEGA_57K),
+          f"contour found {len(Om)} modes, JAX host {len(OMEGA_57K)}")
+    check(rel.max() <= CONTOUR_RTOL, f"contour modes off by {rel.max():.3e}")
+    check(info["max_relres"] <= CONTOUR_RELRES,
+          f"contour max relres {info['max_relres']:.3e}")
+    check(P.shape == (L.size, len(Om)) and np.isfinite(P).all(),
+          "contour eigenvectors not finite")
+    check(all(t == 0 for _, t in counts.values()),
+          f"contour ran a plain kernel version: {counts}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        Om, P, res, info = beyn(L, CONTOUR, backend="slab",
+                                refine_sweeps=JAX_SWEEP_CAP,
+                                return_residuals=True, return_info=True,
+                                **CONTOUR_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _contour_line(f", refine_sweeps={JAX_SWEEP_CAP}", L, card, part, chunk,
+                  Om, res, info, wall, torch.cuda.max_memory_allocated(),
+                  read_counts())
+    above = info["max_relres"] > 1e-11       # the solver's refine_tol
+    warned = any("refine_tol" in str(w.message) for w in caught)
+    check(bool(info["unconverged"]) == above == warned,
+          f"unconverged chunks {info['unconverged']} not reported as such "
+          f"(max relres {info['max_relres']:.3e}, warned {warned})")
+    return wall
+
+
+def phase_contour_small(card):
+    """Path D at 437 DOF: the passive family through the "host", "dense"
+    and "slab" backends of ``beyn``, each within SMALL_HZ_ATOL of the
+    pinned JAX host modes.  "host" is SuperLU on the host's CPU whatever
+    the device; the other two run on the card."""
+    from wavesandeigenvalues_jl_tpu_torch.mesh.generate import rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.models import discretize
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        passive_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
+    mesh = rijke_mesh(n_rings=2, nz_cold=10, nz_hot=10)
+    L = discretize(mesh, *passive_rijke_setup(mesh))
+    f_ref = _hz(OMEGA_437_PASSIVE)
+    for backend in ("host", "dense", "slab"):
+        t0 = time.perf_counter()
+        Om, P = beyn(L, CONTOUR, backend=backend, **CONTOUR_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f = _hz(Om)
+        err = np.abs(f - f_ref).max() if len(f) == len(f_ref) else np.inf
+        where = ("SuperLU on the host CPU" if backend == "host"
+                 else f"on {card}")
+        print(f"main path D (contour, n={L.size}) backend {backend}, "
+              f"{where}: modes Hz {', '.join(f'{x:.8f}' for x in f)} max "
+              f"|Δf| {err:.3e} "
+              f"Hz (tol {SMALL_HZ_ATOL:.0e}) | wall {wall:.3f} s", flush=True)
+        check(err <= SMALL_HZ_ATOL, f"backend {backend}: modes off by {err}")
+        check(np.isfinite(P).all(), f"backend {backend}: bad eigenvectors")
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     warp_row = phase_build()
     k3 = phase_compare_k3()
 
@@ -760,9 +928,13 @@ def main():
     t0 = time.perf_counter()
     large_counts, L57k, plan = phase_large_path()
     k45 = phase_compare_k45(L57k, plan, warp_row)
+    t_d = time.perf_counter()
+    phase_contour_path(L57k, card)
+    phase_contour_small(card)
     t_end = time.perf_counter()
-    print(f"path C phases: {t_end - t0:.2f} s of the run's "
-          f"{t_end - t_start:.2f} s", flush=True)
+    print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
+          f"{t_end - t_d:.2f} s of the run's {t_end - t_start:.2f} s",
+          flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [

@@ -26,6 +26,7 @@ from wavesandeigenvalues_jl_tpu_torch.ops.gmres import gmres_test_problem
 from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
                                                           permute_csr)
 from wavesandeigenvalues_jl_tpu_torch.ops.sparse import CSR
+from wavesandeigenvalues_jl_tpu_torch.ops.slab_solve import SlabSolver
 from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (S_MAX,
                                                                slab_thomas,
                                                                slab_thomas_ref)
@@ -425,3 +426,26 @@ def test_operator_apply_window_on_card(cuda):
     scale = abs(As) @ np.abs(X).astype(np.float64)
     assert (np.abs(Y - ref) / np.maximum(scale, 1e-300)).max() <= 1e-5
     assert np.linalg.norm(Y - ref) / np.linalg.norm(ref) < 5e-5
+
+
+def test_slab_solver_on_card_matches_cpu(cuda):
+    """The contour's slab direct solver on the card (complex64
+    factorization and re-solves, complex128 host refinement) on the
+    437-DOF passive family: max relres < 1e-10 and every shift within 1e-8
+    relative of the same solver on the CPU (test_torch_contour.py)."""
+    from wavesandeigenvalues_jl_tpu_torch.mesh.generate import rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.models import discretize
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        passive_rijke_setup
+    mesh = rijke_mesh(n_rings=2, nz_cold=10, nz_hot=10)
+    L = discretize(mesh, *passive_rijke_setup(mesh))
+    zs = 2 * np.pi * np.array([250 + 5j, 400 - 5j, 600 + 5j])
+    rng = np.random.default_rng(0)
+    V = (rng.standard_normal((L.size, 3))
+         + 1j * rng.standard_normal((L.size, 3)))
+    X, info = SlabSolver(L, chunk=4, device=cuda).solve(zs, V)
+    Xc, info_c = SlabSolver(L, chunk=4, device="cpu").solve(zs, V)
+    assert info["max_relres"] < 1e-10
+    assert info["timings"]["factor_steps"] == info_c["timings"]["factor_steps"]
+    for j in range(len(zs)):
+        assert np.linalg.norm(X[j] - Xc[j]) / np.linalg.norm(Xc[j]) < 1e-8, j

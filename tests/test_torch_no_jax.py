@@ -26,6 +26,9 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.nlevp.pencil",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab",
+    "wavesandeigenvalues_jl_tpu_torch.ops.slab_solve",
+    "wavesandeigenvalues_jl_tpu_torch.parallel",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",
     "chip_smoke",
 ]
 

@@ -7,7 +7,8 @@ coefficient algebra, scipy polish) is numpy as in the JAX package; the
 device step is PyTorch, and every Pallas kernel on a ported path is a
 hand-written CUDA kernel under ``csrc/``.  The port never imports jax.
 
-Subpackages: ``mesh``, ``fem``, ``models``, ``nlevp``, ``ops``, ``utils``.
+Subpackages: ``mesh``, ``fem``, ``models``, ``nlevp``, ``ops``,
+``parallel``, ``utils``.
 """
 from .utils import config  # noqa: F401  (sets the TF32 flags, dtypes)
 
@@ -17,6 +18,7 @@ __version__ = "0.1.0"
 def __getattr__(name):
     # lazy subpackage access, as in the JAX package
     import importlib
-    if name in ("mesh", "fem", "models", "nlevp", "ops", "utils"):
+    if name in ("mesh", "fem", "models", "nlevp", "ops", "parallel",
+                "utils"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)
