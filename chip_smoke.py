@@ -19,7 +19,14 @@ their real size, each with the launch counters set to 0 just before it:
 * path D, the contour: Beyn on path C's family through the slab direct
   solver (``ops/slab_solve.SlabSolver``: plain PyTorch, no kernel of its
   own), checked against the pinned JAX host Beyn modes, then the 437-DOF
-  passive family through the "host", "dense" and "slab" backends.
+  passive family through the "host", "dense" and "slab" backends;
+* path E, the general local engine (plain PyTorch, no kernel of its own):
+  ``householder(order=3)`` on the 4,087-DOF active Rijke tube through
+  ``DeviceLU`` (complex128 LU and the dual Arnoldi on the card), the
+  order-16 perturbation series in n with its Padé [8/8] value, and
+  ``householder(order=2)`` at 437 DOF on the "device_gmres" backend, each
+  against pinned JAX host values; then a report of ``DeviceGMRES``'s
+  refined residual on the 7,259-DOF operator (ROADMAP.md Queue 3, F4).
 
 Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -108,6 +115,27 @@ CONTOUR_RTOL, CONTOUR_RELRES, SMALL_HZ_ATOL = 1e-7, 1e-8, 1e-6
 #: the JAX package's sweep cap of the slab refinement (the port's is 12),
 #: run once more on the 57,210-DOF contour to show what it leaves
 JAX_SWEEP_CAP = 4
+#: path E: JAX host (complex128 SuperLU) on the 4,087-DOF active family
+#: (rijke_mesh(n_rings=4, nz_cold=32, nz_hot=32)):
+#:   sol, n, flag = householder(L, Z0, maxiter=12, tol=1e-9, order=3)
+#: (4 iterations, flag 0), then perturb(sol, L, "n", 16): its c1..c4, the
+#: [8/8] Padé value sol("n", 0.5, 8, 8), and householder(order=3) re-solved
+#: at n = 0.5 from sol's ω
+OMEGA_4087_H3 = 1086.7599456500598 + 377.11803455561125j
+PERT_4087_C = (-364.37890125585517 - 116.41422973501396j,
+               242.27005455348984 + 18.745206142649923j,
+               -193.28905011592644 + 34.56470736768021j,
+               163.28275989263645 - 73.14140918834569j)
+PADE_4087_88 = 1370.7464868377333 + 422.5851856222397j
+OMEGA_4087_N05 = 1370.7464868459433 + 422.585185713891j
+#: the bars of c1..c4 (relative) and of the Padé value (× |ω|)
+PERT_RTOL, PADE_RTOL = 1e-8, 1e-7
+#: JAX host householder(L437, Z0, maxiter=12, tol=1e-9, order=2)
+OMEGA_437_H2 = 1074.9363291293967 + 373.15894122636877j
+#: JAX DeviceGMRES(L7259(Z0)) at its defaults, complex128 on the CPU: the
+#: relative residual its refined solve returns for the rhs
+#: default_rng(0) normal + 1j·normal, for "N" and "H" (ROADMAP Queue 3 F4)
+F4_JAX_RELRES = (0.04042617386794759, 0.015015369539456725)
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -393,7 +421,13 @@ def phase_compare_k2(L1369):
 
 def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
     """Drive mslp on the card with the counters set to 0 just before it;
-    print its line, check it, and return the counts read just after."""
+    print its line, check it, and return the counts read just after.  The
+    fused engine must carry the whole solve: its hand-over to the general
+    engine (a non-finite device step) is an error here, every iteration
+    must be one of its device or polish steps, and no phase of the general
+    engine may have run."""
+    import warnings
+
     from wavesandeigenvalues_jl_tpu_torch.nlevp import mslp
     from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
@@ -403,7 +437,10 @@ def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="fused device step",
+                                category=RuntimeWarning)
+        sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -428,6 +465,12 @@ def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
           f"{label}: solver {type(solver).__name__}")
     check(flag == 0, f"{label}: mslp flag {flag}")
     check(rel <= OMEGA_RTOL, f"{label}: omega off by {rel:.3e} relative")
+    check(1 <= steps["calls"] <= n_it <= steps["calls"] + polish["calls"],
+          f"{label}: {n_it} iterations from {steps['calls']} device and "
+          f"{polish['calls']} polish steps")
+    general = sorted(k for k in rep if "device_solve" in k
+                     or "dual_arnoldi" in k)
+    check(not general, f"{label}: the general engine ran {general}")
     launches, twin = counts[kernel]
     check(launches > 0, f"{label} never launched {kernel}")
     check(twin == 0, f"{label}: the plain {kernel} ran {twin} times")
@@ -906,6 +949,185 @@ def phase_contour_small(card):
         check(np.isfinite(P).all(), f"backend {backend}: bad eigenvectors")
 
 
+def _report_sum(rep, name):
+    """(calls, seconds) of the phases named ``name`` at any nesting (a
+    factorization inside ``perturb`` is "perturb.device_solve.factor")."""
+    hits = [v for k, v in rep.items() if k == name or k.endswith("." + name)]
+    return (sum(v["calls"] for v in hits), sum(v["total_s"] for v in hits))
+
+
+def _engine_line(rep, steps, per="a step"):
+    """The general engine's parts from a ``utils.timing`` report, each also
+    over ``steps``."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import \
+        TRANSFER_BYTES
+    parts = [("factorizations", "device_solve.factor"),
+             ("dual Arnoldi", "eigs.dual_arnoldi"),
+             ("refined solves", "device_solve.refine"),
+             ("device solves (refinement sweeps)", "device_solve.refine.solve"),
+             ("host residuals", "device_solve.refine.host_residual"),
+             ("perturb", "perturb")]
+    out = []
+    for what, name in parts:
+        calls, secs = _report_sum(rep, name)
+        out.append(f"{what} {calls} in {secs:.3f} s ({calls / steps:.1f} "
+                   f"{per}, {secs / steps:.3f} s {per})")
+    moved = {k: v / 2**20 for k, v in TRANSFER_BYTES.items()}
+    return ("; ".join(out) + f" | host->device {moved['to_device']:.1f} MiB,"
+            f" device->host {moved['to_host']:.1f} MiB")
+
+
+def phase_general_engine(card, L7259):
+    """Path E, the general local engine on the card.  E1: householder of
+    order 3 at 4,087 DOF through DeviceLU (complex128 LU on the card) and
+    the dual Arnoldi there; E2: perturbation theory on the same family
+    (order-16 series in n from one factorization, Padé [8/8]); E3:
+    householder of order 2 at 437 DOF on the "device_gmres" backend.
+    Then, a report and no check, DeviceGMRES's refined relres on the
+    7,259-DOF operator (F4).  The counters are set to 0 before E1 and read
+    after E3: the general engine launches none of the port's kernels."""
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_family
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import (householder,
+                                                        perturb, polyval)
+    from wavesandeigenvalues_jl_tpu_torch.ops import device_solve
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+    from wavesandeigenvalues_jl_tpu_torch.utils.config import (
+        set_solve_backend, solve_backend)
+
+    check(solve_backend() == "device", f"solve backend {solve_backend()}")
+    factors = []
+    factor_init = device_solve.DeviceLU.__init__
+
+    def recording_init(self, *args, **kwargs):
+        factor_init(self, *args, **kwargs)
+        factors.append((self._fac[0].device.type, self._fac[0].dtype))
+
+    device_solve.DeviceLU.__init__ = recording_init
+    t0 = time.perf_counter()
+    L = active_rijke_family(n_rings=4, nz_cold=32, nz_hot=32)
+    build = time.perf_counter() - t0
+    check(L.size == 4087, f"path E family dimension {L.size}")
+
+    # E1: householder(order=3) through DeviceLU on the card
+    timing.reset()
+    for key in device_solve.TRANSFER_BYTES:
+        device_solve.TRANSFER_BYTES[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol, n_it, flag = householder(L, Z0, maxiter=12, tol=1e-9, order=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    om = sol.params[sol.eigval]
+    rel = abs(om - OMEGA_4087_H3) / abs(OMEGA_4087_H3)
+    print(f"main path E1 (householder order 3, DeviceLU) on {card}: "
+          f"n={L.size} (family built in {build:.2f} s) | wall {wall:.3f} s, "
+          f"{n_it} Newton steps | {_engine_line(timing.report(), n_it)} | "
+          f"peak device memory {peak / 2**20:.1f} MiB | iterations {n_it} "
+          f"flag {flag} | omega {om!r} rel err {rel:.3e} (tol "
+          f"{OMEGA_RTOL:.0e})", flush=True)
+    arnoldi_calls = _report_sum(timing.report(), "eigs.dual_arnoldi")[0]
+    check(flag == 0, f"E1: flag {flag}")
+    check(n_it == 4, f"E1: {n_it} iterations, JAX host 4")
+    check(arnoldi_calls == n_it, f"E1: {arnoldi_calls} dual Arnoldi runs on "
+          f"the card in {n_it} steps (a host Arnoldi took over)")
+    check(rel <= OMEGA_RTOL, f"E1: omega off by {rel:.3e}")
+    check(np.isfinite(sol.v).all(), "E1: eigenvector not finite")
+
+    # E2: perturbation theory from the converged eigentriple
+    timing.reset()
+    for key in device_solve.TRANSFER_BYTES:
+        device_solve.TRANSFER_BYTES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    perturb(sol, L, "n", 16)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    parts = _engine_line(timing.report(), 16, "an order")
+    peak = torch.cuda.max_memory_allocated()
+    c = np.asarray(sol.eigval_pert["n/Taylor"])
+    c_rel = np.abs(c[1:5] - np.asarray(PERT_4087_C)) / np.abs(PERT_4087_C)
+    pade = sol("n", 0.5, 8, 8)
+    taylor = polyval(c, 0.5 - sol.params["n"])
+    pade_rel = abs(pade - PADE_4087_88) / abs(PADE_4087_88)
+    L.params["n"] = 0.5
+    t0 = time.perf_counter()
+    exact, n_ex, flag_ex = householder(L, om, maxiter=12, tol=1e-9, order=3)
+    wall_ex = time.perf_counter() - t0
+    L.params["n"] = 1.0
+    om_ex = exact.params[exact.eigval]
+    rel_ex = abs(om_ex - OMEGA_4087_N05) / abs(OMEGA_4087_N05)
+    fmt = lambda xs: "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"  # noqa
+    print(f"main path E2 (perturb n, order 16) on {card}: wall {wall_p:.3f} "
+          f"s | {parts} | peak device memory {peak / 2**20:.1f} MiB | c1..c4 "
+          f"{', '.join(repr(complex(x)) for x in c[1:5])} rel err "
+          f"{fmt(c_rel)} (tol {PERT_RTOL:.0e}) | Pade[8/8] at n=0.5 "
+          f"{pade!r} rel err {pade_rel:.3e} (tol {PADE_RTOL:.0e}) | against "
+          f"householder re-solved at n=0.5 ({om_ex!r}, flag {flag_ex}, "
+          f"{n_ex} steps, {wall_ex:.3f} s; JAX host {OMEGA_4087_N05!r}, rel "
+          f"err {rel_ex:.3e}, tol {OMEGA_RTOL:.0e}): "
+          f"Taylor(16) err {abs(taylor - om_ex) / abs(om_ex):.3e}, "
+          f"Pade[8/8] err {abs(pade - om_ex) / abs(om_ex):.3e} (relative)",
+          flush=True)
+    check(c_rel.max() <= PERT_RTOL, f"E2: c1..c4 off by {c_rel.max():.3e}")
+    check(pade_rel <= PADE_RTOL, f"E2: Pade value off by {pade_rel:.3e}")
+    check(flag_ex == 0, f"E2: re-solve flag {flag_ex}")
+    check(rel_ex <= OMEGA_RTOL, f"E2: re-solve at n=0.5 off JAX host by "
+          f"{rel_ex:.3e}")
+
+    # E3: the "device_gmres" backend on the 437-DOF family
+    L437 = active_rijke_family()
+    prev = set_solve_backend("device_gmres")
+    try:
+        timing.reset()
+        t0 = time.perf_counter()
+        sol3, n3, flag3 = householder(L437, Z0, maxiter=12, tol=1e-9,
+                                      order=2)
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
+    finally:
+        set_solve_backend(prev)
+    counts = read_counts()
+    om3 = sol3.params[sol3.eigval]
+    rel3 = abs(om3 - OMEGA_437_H2) / abs(OMEGA_437_H2)
+    solves = _report_sum(timing.report(), "device_solve.refine.solve")
+    print(f"main path E3 (householder order 2, device_gmres) on {card}: "
+          f"n={L437.size} | wall {wall3:.3f} s, {n3} Newton steps, "
+          f"{solves[0]} GMRES solves in {solves[1]:.3f} s | flag {flag3} | "
+          f"omega {om3!r} rel err {rel3:.3e} (tol {OMEGA_RTOL:.0e}) | "
+          f"launches, plain calls over E1-E3 {counts} | DeviceLU "
+          f"factorizations {len(factors)}, on {sorted(set(factors))}",
+          flush=True)
+    check(flag3 == 0, f"E3: flag {flag3}")
+    check(rel3 <= OMEGA_RTOL, f"E3: omega off by {rel3:.3e}")
+    check(all(t == 0 for _, t in counts.values()),
+          f"path E ran a plain kernel version: {counts}")
+    check(factors and set(factors) == {("cuda", torch.complex128)},
+          f"path E factorizations: {sorted(set(factors))}")
+    device_solve.DeviceLU.__init__ = factor_init
+
+    # F4, a report: DeviceGMRES at 7,259 DOF and its defaults
+    A = L7259(Z0)
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal(A.shape[0]) + 1j * rng.standard_normal(A.shape[0])
+    F = device_solve.DeviceGMRES(A)
+    relres = []
+    t0 = time.perf_counter()
+    for trans in ("N", "H"):
+        F.solve(b, trans)
+        relres.append(F.last_relres)
+    print(f"report F4: DeviceGMRES(L(Z0)) on {card}, n={A.shape[0]}, bs "
+          f"{F.bs}, GMRES({F.restart}), {F.max_restarts} restarts: refined "
+          f"relres N {relres[0]:.3e}, H {relres[1]:.3e} in "
+          f"{time.perf_counter() - t0:.3f} s (JAX on the CPU, same rhs: "
+          f"{F4_JAX_RELRES[0]:.3e}, {F4_JAX_RELRES[1]:.3e}; refinement "
+          f"target 1e-13)", flush=True)
+    check(all(np.isfinite(relres)), f"F4: relres not finite {relres}")
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
@@ -931,10 +1153,13 @@ def main():
     t_d = time.perf_counter()
     phase_contour_path(L57k, card)
     phase_contour_small(card)
+    del L57k, plan
+    t_e = time.perf_counter()
+    phase_general_engine(card, L7259)
     t_end = time.perf_counter()
     print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
-          f"{t_end - t_d:.2f} s of the run's {t_end - t_start:.2f} s",
-          flush=True)
+          f"{t_e - t_d:.2f} s, path E phases: {t_end - t_e:.2f} s of the "
+          f"run's {t_end - t_start:.2f} s", flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [

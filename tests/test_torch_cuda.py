@@ -449,3 +449,52 @@ def test_slab_solver_on_card_matches_cpu(cuda):
     assert info["timings"]["factor_steps"] == info_c["timings"]["factor_steps"]
     for j in range(len(zs)):
         assert np.linalg.norm(X[j] - Xc[j]) / np.linalg.norm(Xc[j]) < 1e-8, j
+
+
+def _penalty_system(n=96):
+    """The penalty system of tests/test_device_backend.py:18-28."""
+    rng = np.random.default_rng(0)
+    A = (np.eye(n) * 4 + 0.3 * rng.standard_normal((n, n))
+         + 0.1j * rng.standard_normal((n, n)))
+    A[0] *= 1e12
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    return A, b
+
+
+@pytest.mark.parametrize("kind", ["lu", "gmres"])
+def test_device_solve_on_card_matches_cpu(cuda, kind):
+    """``DeviceLU`` (complex128 LU on the card) and ``DeviceGMRES`` on the
+    penalty system, every transpose and a 3-column panel: within 1e-10 of
+    their CPU twins and 1e-8 of the direct solve (the JAX test's bar);
+    the LU's factors lie on the card in complex128."""
+    from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import (
+        DeviceGMRES, DeviceLU)
+    A, b = _penalty_system()
+    B = np.stack([b, 2 * b, 1j * b], axis=1)
+    make = ((lambda dev: DeviceLU(CSR.from_dense(A), device=dev))
+            if kind == "lu" else
+            (lambda dev: DeviceGMRES(CSR.from_dense(A), bs=16, tol=1e-10,
+                                     device=dev)))
+    F, Fc = make(cuda), make("cpu")
+    if kind == "lu":
+        assert F._fac[0].device.type == "cuda"
+        assert F._fac[0].dtype == torch.complex128
+    for trans, M in (("N", A), ("T", A.T), ("H", A.conj().T)):
+        for rhs in (b, B):
+            x, xc = F.solve(rhs, trans), Fc.solve(rhs, trans)
+            ref = np.linalg.solve(M, rhs)
+            assert np.linalg.norm(x - ref) / np.linalg.norm(ref) < 1e-8
+            assert np.linalg.norm(x - xc) / np.linalg.norm(xc) < 1e-10
+
+
+def test_householder_order3_on_card(cuda):
+    """The general engine on the card: householder(order=3) on the 437-DOF
+    active family through DeviceLU in complex128 gives flag 0 in 4
+    iterations (as JAX host) and ω within 1e-10·|ω| of OMEGA_437 (JAX host
+    mslp; JAX host householder(order=3) is 5e-14·|ω| from it)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import householder
+    sol, n_it, flag = householder(active_rijke_family(), Z0, maxiter=12,
+                                  tol=1e-9, order=3, device=cuda)
+    om = sol.params[sol.eigval]
+    assert (flag, n_it) == (0, 4)
+    assert abs(om - OMEGA_437) <= 1e-10 * abs(OMEGA_437)

@@ -102,10 +102,15 @@ def test_load_family_of_jax_npz(tmp_path):
 
 
 def test_unported_settings_raise():
+    """What is still not ported raises: Beyn's "gmres" backend (the panel
+    solver, ROADMAP.md Queue 1 item 4); a solve backend the JAX package
+    does not have is refused.  (Higher orders and the "host" backend are
+    ported: tests/test_torch_local_engine.py.)"""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
     from wavesandeigenvalues_jl_tpu_torch.utils.config import \
         set_solve_backend
     L = active_rijke_family()
     with pytest.raises(NotImplementedError):
-        mslp(L, Z0, order=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        set_solve_backend("host")
+        beyn(L, [1 + 1j, 2 + 1j, 2 + 2j], backend="gmres", device="cpu")
+    with pytest.raises(ValueError):
+        set_solve_backend("tpu")

@@ -18,6 +18,8 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.ops",
     "wavesandeigenvalues_jl_tpu_torch.ops.cuda_build",
     "wavesandeigenvalues_jl_tpu_torch.ops.gmres",
+    "wavesandeigenvalues_jl_tpu_torch.ops.device_solve",
+    "wavesandeigenvalues_jl_tpu_torch.ops.refine",
     "wavesandeigenvalues_jl_tpu_torch.ops.dense_gmres",
     "wavesandeigenvalues_jl_tpu_torch.ops.device",
     "wavesandeigenvalues_jl_tpu_torch.ops.reorder",
@@ -26,6 +28,9 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.nlevp.pencil",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.perturbation",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.gallery",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.eigs",
     "wavesandeigenvalues_jl_tpu_torch.ops.slab_solve",
     "wavesandeigenvalues_jl_tpu_torch.parallel",
     "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",

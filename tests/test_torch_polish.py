@@ -92,7 +92,8 @@ def test_factorize_retries_dense(monkeypatch, case):
     else:
         monkeypatch.setattr(scipy.sparse.linalg, "splu", _superlu_refuses)
     A.sort_indices()
-    F = linsolve.factorize(CSR(A.indptr, A.indices, A.data, A.shape))
+    F = linsolve.factorize(CSR(A.indptr, A.indices, A.data, A.shape),
+                           backend="host")
     Fj = linsolve_jax.factorize(CSRJax(A.indptr, A.indices, A.data, A.shape),
                                 backend="host")
     assert isinstance(F, linsolve.DenseLU)
@@ -101,7 +102,7 @@ def test_factorize_retries_dense(monkeypatch, case):
     if case == "singular":
         with pytest.raises(linsolve.SingularMatrixError):
             linsolve.factorize(CSR(A.indptr, A.indices, A.data, A.shape),
-                               check=True)
+                               check=True, backend="host")
         with pytest.raises(linsolve_jax.SingularMatrixError):
             linsolve_jax.factorize(
                 CSRJax(A.indptr, A.indices, A.data, A.shape), check=True,

@@ -1,8 +1,9 @@
 """Scalar coefficient-function algebra with analytic derivatives.
 
 Copied from the JAX package's ``nlevp/algebra.py``, restricted to the
-functions the ported ``discretize`` front-end uses: the monomials
-``pow1/pow2`` and the time delay ``exp(-iωτ)`` of the n–τ flame.  The
+functions the ported ``discretize`` front-end and the gallery use: the
+monomials ``pow1/pow2/pow_a`` and the time delay ``exp(-iωτ)`` of the
+n–τ flame.  The
 other coefficient functions (state-space admittances, fancy flame, Bloch
 filters, combinators) are ROADMAP.md Queue 1 work.
 
@@ -110,6 +111,10 @@ pow1 = Pow(1)
 pow2 = Pow(2)
 
 
+def pow_a(a) -> Pow:
+    return Pow(a)
+
+
 class ExpDelay(ScalarFunc):
     """exp(-iωτ) with mixed derivatives ∂^m_ω ∂^n_τ (algebra.jl:138-150).
 
@@ -140,4 +145,5 @@ class ExpDelay(ScalarFunc):
 exp_delay = ExpDelay()
 
 
-__all__ = ["ScalarFunc", "Pow", "pow1", "pow2", "ExpDelay", "exp_delay"]
+__all__ = ["ScalarFunc", "Pow", "pow1", "pow2", "pow_a", "ExpDelay",
+           "exp_delay"]

@@ -1,11 +1,13 @@
-"""Shift-invert Arnoldi for the generalized pencil  A v = λ M v (host).
+"""Shift-invert Arnoldi for the generalized pencil  A v = λ M v.
 
-Copied from the JAX package's ``nlevp/eigs.py`` (host path only): the
-complex128 polish after the fused device loop needs it.  Replaces the
+Counterpart of the JAX package's ``nlevp/eigs.py``.  Replaces the
 reference's ARPACK dependency (``Arpack.eigs(A, M, sigma=0)`` inside every
 local NLEVP solver, e.g. Householder.jl:100-101) with a restarted Arnoldi
-iteration on OP = (A - σM)^{-1} M with full Gram-Schmidt.  Left
-eigenvectors come from the same factorization via conj-transpose solves.
+iteration on OP = (A - σM)^{-1} M with full Gram-Schmidt, on the host over
+any factorization.  Left eigenvectors come from the same factorization via
+conj-transpose solves.  Where the factorization is a
+:class:`..ops.device_solve.DeviceLU`, :func:`eigs_pencil_pair` runs both
+Arnoldi recurrences on its device instead.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 from ..ops.linsolve import Factorization, factorize
 from ..ops.sparse import CSR
 from ..utils.config import CDTYPE
+from ..utils.timing import phase
 
 
 def arnoldi(op: Callable[[np.ndarray], np.ndarray], v0: np.ndarray, m: int,
@@ -65,12 +68,14 @@ def eigs_shift_invert(A, M, nev: int = 1, sigma: complex = 0.0,
                       v0: Optional[np.ndarray] = None, m: Optional[int] = None,
                       tol: float = 1e-12, maxrestart: int = 4,
                       factor: Optional[Factorization] = None,
-                      adjoint: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+                      adjoint: bool = False,
+                      device="cuda") -> Tuple[np.ndarray, np.ndarray]:
     """``nev`` eigenpairs of A v = λ M v nearest ``sigma``.
 
     With ``adjoint=True`` solves the conjugate-transposed pencil
     A' v = λ M' v using the SAME factorization of (A - σM) via trans='H'
-    solves (ARPACK call pair, Householder.jl:100-101).
+    solves (ARPACK call pair, Householder.jl:100-101).  Without ``factor``
+    it factorizes through :func:`..ops.linsolve.factorize` on ``device``.
     """
     if isinstance(A, CSR):
         n = A.shape[0]
@@ -87,9 +92,9 @@ def eigs_shift_invert(A, M, nev: int = 1, sigma: complex = 0.0,
         if sigma != 0.0:
             Ad = (A.to_dense() if isinstance(A, CSR) else np.asarray(A))
             Md = (M.to_dense() if isinstance(M, CSR) else np.asarray(M))
-            factor = factorize(Ad - sigma * Md, check=True)
+            factor = factorize(Ad - sigma * Md, check=True, device=device)
         else:
-            factor = factorize(A, check=True)
+            factor = factorize(A, check=True, device=device)
 
     if adjoint:
         if isinstance(M, CSR):
@@ -125,4 +130,78 @@ def eigs_shift_invert(A, M, nev: int = 1, sigma: complex = 0.0,
     return lam, X
 
 
-__all__ = ["arnoldi", "eigs_shift_invert"]
+def _pair_device_fast_path(factor, A, M, v0, v0_adj, m: int, m_cache=None):
+    """Dual Arnoldi on the factorization's device, then a complex128
+    polish: the best Ritz pair of each side, two refined inverse-iteration
+    steps and a two-sided Rayleigh quotient, so the eigentriple matches
+    the host-loop path.  None on a breakdown (the host loop takes over)."""
+    n = A.shape[0]
+    with phase("eigs.dual_arnoldi"):
+        V, H, W, G = factor.dual_arnoldi(M, v0, v0_adj, m, m_cache)
+    lam, X, _res, mu = _ritz_from_arnoldi(V, H, 0.0)
+    lamA, XA, _resA, muA = _ritz_from_arnoldi(W, G, 0.0)
+    v = X[:, int(np.argmax(np.abs(mu)))]
+    vadj = XA[:, int(np.argmax(np.abs(muA)))]
+    nv, na = np.linalg.norm(v), np.linalg.norm(vadj)
+    if nv == 0 or na == 0 or not (np.isfinite(nv) and np.isfinite(na)):
+        return None
+    v, vadj = v / nv, vadj / na
+    if isinstance(A, CSR):
+        mv = lambda x: A @ x
+    else:
+        Ad = np.asarray(A)
+        mv = lambda x: Ad @ x
+    if isinstance(M, CSR):
+        Mmv = lambda x: M @ x
+        MH = M.conj_transpose()
+        MHmv = lambda x: MH @ x
+    else:
+        Md = np.asarray(M)
+        Mmv = lambda x: Md @ x
+        MHmv = lambda x: Md.conj().T @ x
+    for _ in range(2):
+        v = factor.solve(Mmv(v))
+        v = v / np.linalg.norm(v)
+        vadj = factor.solve(MHmv(vadj), trans="H")
+        vadj = vadj / np.linalg.norm(vadj)
+    den = np.vdot(vadj, Mmv(v))
+    if den == 0 or not np.isfinite(den):
+        return None
+    lam1 = complex(np.vdot(vadj, mv(v)) / den)
+    return (np.array([lam1], dtype=CDTYPE), v.reshape(n, 1),
+            np.array([np.conj(lam1)], dtype=CDTYPE), vadj.reshape(n, 1))
+
+
+def eigs_pencil_pair(A, M, nev: int = 1, v0=None, v0_adj=None,
+                     m: Optional[int] = None, device="cuda", m_cache=None):
+    """Right and left eigenpairs of the pencil near 0, sharing one
+    factorization (:func:`..ops.linsolve.factorize` on ``device``).  Returns (lam, V, lam_adj, V_adj) sorted by |λ| (the
+    eigs+sortperm block of Householder.jl:100-109).
+
+    When the factorization is a :class:`..ops.device_solve.DeviceLU` and
+    nev = 1, the direct and adjoint Arnoldi runs go to its device;
+    ``m_cache`` is handed to :meth:`..ops.device_solve.DeviceLU.dual_arnoldi`
+    (a dict the caller keeps while M stays the same)."""
+    from ..ops.device_solve import DeviceLU
+    factor = factorize(A, check=True, device=device)
+    if nev == 1 and isinstance(factor, DeviceLU):
+        n = A.shape[0]
+        mm = min(n, max(24, 2 * nev + 12)) if m is None else min(m, n)
+        vv = (np.ones(n, CDTYPE) if v0 is None or len(v0) == 0
+              else np.asarray(v0, CDTYPE))
+        va = (np.conj(vv) if v0_adj is None or len(v0_adj) == 0
+              else np.asarray(v0_adj, CDTYPE))
+        out = _pair_device_fast_path(factor, A, M, vv, va, mm, m_cache)
+        if out is not None:
+            return out
+    lam, V = eigs_shift_invert(A, M, nev=nev, v0=v0, m=m, factor=factor)
+    lam_adj, Vadj = eigs_shift_invert(A, M, nev=nev, v0=v0_adj, m=m,
+                                      factor=factor, adjoint=True)
+    idx = np.argsort(np.abs(lam))
+    lam, V = lam[idx], V[:, idx]
+    idx = np.argsort(np.abs(lam_adj))
+    lam_adj, Vadj = lam_adj[idx], Vadj[:, idx]
+    return lam, V, lam_adj, Vadj
+
+
+__all__ = ["arnoldi", "eigs_shift_invert", "eigs_pencil_pair"]

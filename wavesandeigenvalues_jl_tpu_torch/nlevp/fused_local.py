@@ -11,13 +11,17 @@ each of the dense GMRES kernel K2 (:func:`..ops.dense_gmres.dense_gmres`);
 larger n to the slab engine :class:`.fused_slab.FusedSlabPencilSolver`
 (kernel K3).  Both share the Newton step of :class:`.pencil.PencilSolver`.
 
-No device failure is hidden: where the JAX function returns ``None`` and
-lets its host engine run, the port raises — an engine error propagates and
-a non-finite dz raises with its iteration number.  The host polish is
-wrapped as in the JAX package: a linear-algebra error there keeps the
-device iterate.
+A non-finite device dz hands the iteration to the general engine
+(:func:`.solvers._local_engine`) on the same device, with a warning that
+names the step, as the JAX package falls back to its own.  Nothing else is
+caught: the JAX function also returns ``None`` where building the engine
+or a step raises; the port lets that error propagate, so a kernel that
+fails to build or launch raises.  The host polish is wrapped as in the JAX
+package: a linear-algebra error there keeps the device iterate.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -125,9 +129,11 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                     v0, v0_adj, output, scale, device):
     """Fused-device mslp/householder order-1 engine on ``device``.
 
-    Returns (Solution, n_iters, flag).  Semantics mirror the reference's
-    local engine for nev=1, order=1 (Newton update dz = −λ/λ′, which is
-    both the householder order-1 update and the [1/0]-Padé root)."""
+    Returns (Solution, n_iters, flag), or None after a non-finite device
+    dz (the caller's general engine then starts over).  Semantics mirror
+    the reference's local engine for nev=1, order=1 (Newton update
+    dz = −λ/λ′, which is both the householder order-1 update and the
+    [1/0]-Padé root)."""
     from .solvers import (ITSOL_CONVERGED, ITSOL_IMPOSSIBLE, ITSOL_ISNAN,
                           ITSOL_MAXITER, ITSOL_SLOW_CONVERGENCE)
 
@@ -179,8 +185,13 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
             dz, lam, carries, res = solver.step(z, carries, sigma,
                                                 refresh=(n_it == 0))
         if not np.isfinite(dz):
-            raise FloatingPointError(
-                f"fused device step {n_it}: non-finite dz = {dz}")
+            warnings.warn(f"fused device step {n_it}: non-finite dz = {dz}; "
+                          "the general local engine takes over (above "
+                          "DEVICE_DENSE_MAX_DIM it solves with DeviceGMRES, "
+                          "which stalls on the 7,259-DOF Rijke operator: "
+                          "ROADMAP.md Queue 3, F4)",
+                          RuntimeWarning, stacklevel=3)
+            return None
         if n_it == 0:
             # gap-scale regularization: λ(z₀) is O(|z₀−z*|·λ′), a proxy
             # for the pencil's eigenvalue spacing.  σ keeps (A+σM)
@@ -223,7 +234,7 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                 L.params[aux] = 0.0
                 A = L(z)
                 M = L.aux_weight()
-                F = factorize(A, check=True)
+                F = factorize(A, check=True, backend="host")
                 lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8,
                                                factor=F)
                 lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj, m=8,

@@ -1,7 +1,8 @@
 """Padé algebra on Taylor coefficient sequences — the part of the JAX
-package's ``nlevp/pade.py`` that :class:`.family.Solution` uses (host
-numpy).  The rest (roots, multipoint Padé, polynomial classes) belongs to
-the parameter-study slice, ROADMAP.md Queue 1.
+package's ``nlevp/pade.py`` that :class:`.family.Solution` and the Padé
+update of the local engine use (host numpy).  The rest (multipoint Padé,
+polynomial classes, convergence radii) belongs to the parameter-study
+slice, ROADMAP.md Queue 1.
 
 Reference semantics: pade/pade!/polyval (src/NLEVP/LinOpFam.jl:622-730)."""
 from __future__ import annotations
@@ -65,4 +66,20 @@ def polyval_vec(P, z):
     return f
 
 
-__all__ = ["pade", "pade_vector", "polyval", "polyval_vec"]
+def poly_roots(p):
+    """Roots of Σ p[i] z^i via the companion matrix
+    (Householder.jl:195-203)."""
+    p = np.asarray(p, dtype=CDTYPE)
+    N = len(p) - 1
+    while N > 0 and p[N] == 0:
+        N -= 1
+    if N == 0:
+        return np.zeros(0, dtype=CDTYPE)
+    C = np.zeros((N, N), dtype=CDTYPE)
+    for i in range(1, N):
+        C[i, i - 1] = 1.0
+    C[:, N - 1] = -p[:N] / p[N]
+    return np.linalg.eigvals(C)
+
+
+__all__ = ["pade", "pade_vector", "polyval", "polyval_vec", "poly_roots"]

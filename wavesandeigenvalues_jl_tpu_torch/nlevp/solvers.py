@@ -1,15 +1,22 @@
 """Nonlinear-eigenvalue solvers — the front door of the port.
 
-Counterpart of the JAX package's ``nlevp/solvers.py``.
+Counterpart of the JAX package's ``nlevp/solvers.py``.  Every solver runs
+on ``device``, the card (``"cuda"``) unless the caller asks for the CPU.
 
-The local solvers take the fused device route: ``mslp`` and
-``householder`` with ``order=1, nev=1, num_order<=1`` run
-:func:`.fused_local.try_fused_local` on ``device``, the card (``"cuda"``)
-unless the caller asks for the CPU.  It routes n ≤ 1,400 to the dense
-engine (kernel K2) and larger n to the slab engine (kernel K3), as the JAX
-package does.  Other settings (higher orders, several eigenvalues, the
-host engine with perturbation theory) and the other local solvers raise
-``NotImplementedError``; they are ROADMAP.md Queue 1 work.
+Local solvers, routed as in the JAX package: ``mslp``, ``householder`` and
+``padesolve`` with ``order=1, nev=1, num_order<=1`` on a "device*" solve
+backend (``utils.config``) take the fused engine,
+:func:`.fused_local.try_fused_local` (n ≤ 1,400 through the dense GMRES
+kernel K2, larger n through the block-Thomas kernel K3).  Everything else
+(any order, several eigenvalues, Padé updates, the "host" backend) runs
+the general engine :func:`_local_engine`: per step one factorization of
+L(z) for the direct and adjoint shift-invert Arnoldi
+(:func:`.eigs.eigs_pencil_pair`) and one of L(0,0) for the perturbation
+series of the auxiliary eigenvalue (:func:`.perturbation.perturb`), both
+through :func:`..ops.linsolve.factorize` (``DeviceLU`` / ``DeviceGMRES``
+on ``device``, or scipy on "host").  The classic iterations (inveriter,
+lancaster, traceiter, rf2s, nicoud, picard and the aliases mehrmann,
+juniper, guettel) factorize the same way.
 
 The global solver is Beyn's contour method (``beyn``, beyn.jl:34-110):
 quadrature nodes and the probe block, the moment sums through one of three
@@ -17,22 +24,27 @@ backends ("host": a SuperLU solve per node; "slab": the batched
 block-tridiagonal direct solver on ``device``; "dense": one batched dense
 solve on ``device``, :mod:`..parallel.dist_beyn`), the block-Hankel SVD
 filter, the inside test and the eigenpair residuals.  The hybrid
-global-local ``solve`` and ``generate_subspace`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 3).
+global-local ``solve`` refines Beyn's estimates with
+``householder(order=3)``; ``generate_subspace`` builds the residual-
+controlled projection subspace.
 
 Reference implementations: src/NLEVP/{Householder.jl,iterative_solvers.jl,
 beyn.jl}.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional
 
 import numpy as np
 
-from ..ops.linsolve import factorize
-from ..utils.config import CDTYPE
-from .family import OperatorFamily
+from ..ops.linsolve import SingularMatrixError, factorize
+from ..utils.config import CDTYPE, solve_backend
+from .eigs import eigs_pencil_pair, eigs_shift_invert
+from .family import OperatorFamily, Solution
 from .fused_local import try_fused_local
+from .pade import pade, poly_roots, polyval
+from .perturbation import perturb
 
 # ---------------------------------------------------------------------------
 # status flags (iterative_solvers.jl:4-14)
@@ -63,16 +75,179 @@ def decode_error_flag(flag: int) -> str:
     return _FLAG_MSG.get(flag, "Unknown flag code.")
 
 
+def householder_update(f) -> complex:
+    """Closed-form Householder update of order len(f)-1 (max 5) from
+    derivative values f = [λ, λ', λ'', ...] (Householder.jl:21-35)."""
+    order = len(f) - 1
+    if order == 1:
+        return -f[0] / f[1]
+    if order == 2:
+        return -f[0] * f[1] / (f[1] ** 2 - 0.5 * f[0] * f[2])
+    if order == 3:
+        return (-(6 * f[0] * f[1] ** 2 - 3 * f[0] ** 2 * f[2])
+                / (6 * f[1] ** 3 - 6 * f[0] * f[1] * f[2] + f[0] ** 2 * f[3]))
+    if order == 4:
+        return (-(4 * f[0] * (6 * f[1] ** 3 - 6 * f[0] * f[1] * f[2] + f[0] ** 2 * f[3]))
+                / (24 * f[1] ** 4 - 36 * f[0] * f[1] ** 2 * f[2] + 6 * f[0] ** 2 * f[2] ** 2
+                   + 8 * f[0] ** 2 * f[1] * f[3] - f[0] ** 3 * f[4]))
+    return ((5 * f[0] * (24 * f[1] ** 4 - 36 * f[0] * f[1] ** 2 * f[2]
+                         + 6 * f[0] ** 2 * f[2] ** 2 + 8 * f[0] ** 2 * f[1] * f[3]
+                         - f[0] ** 3 * f[4]))
+            / (-120 * f[1] ** 5 + 240 * f[0] * f[1] ** 3 * f[2]
+               - 60 * f[0] ** 2 * f[1] ** 2 * f[3]
+               + 10 * f[0] ** 2 * f[1] * (-9 * f[2] ** 2 + f[0] * f[4])
+               + f[0] ** 3 * (20 * f[2] * f[3] - f[0] * f[5])))
+
+
+# ---------------------------------------------------------------------------
+# shared local-iteration engine (householder / padesolve / mslp skeleton,
+# Householder.jl:70-192, iterative_solvers.jl:93-252)
+
+
 def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
-                  order, nev, v0, v0_adj, output, num_order, scale, device):
-    if not (nev == 1 and order == 1 and num_order <= 1):
-        raise NotImplementedError(
-            f"order={order}, nev={nev}, num_order={num_order}: only the "
-            "fused order-1 single-eigenvalue route is ported (ROADMAP.md "
-            "Queue 1: host _local_engine with perturbation.py)")
-    return try_fused_local(L, z, maxiter=maxiter, tol=tol, relax=relax,
-                           lam_tol=lam_tol, v0=v0, v0_adj=v0_adj,
-                           output=output, scale=scale, device=device)
+                  order, nev, v0, v0_adj, output, update, num_order, scale,
+                  device):
+    # the fused device engine takes the order-1 single-eigenvalue iteration
+    # (mslp default and householder order 1, both the Newton update
+    # dz = -λ/λ′) on a device backend; a non-finite device step hands the
+    # iteration back here, from the start
+    if (nev == 1 and order == 1 and num_order <= 1
+            and update in ("householder", "pade")
+            and solve_backend().startswith("device")):
+        out = try_fused_local(L, z, maxiter=maxiter, tol=tol, relax=relax,
+                              lam_tol=lam_tol, v0=v0, v0_adj=v0_adj,
+                              output=output, scale=scale, device=device)
+        if out is not None:
+            return out
+    z = complex(z) * scale
+    tol = tol * abs(scale) if scale != 1 else tol
+    saved_active, saved_mode = list(L.active), L.mode
+    d = L.size
+    if v0 is None or len(v0) == 0:
+        v0 = np.ones(d, dtype=CDTYPE)
+    v0 = np.asarray(v0, dtype=CDTYPE).copy()
+    if v0_adj is None or len(v0_adj) == 0:
+        v0_adj = np.conj(v0)
+    v0_adj = np.asarray(v0_adj, dtype=CDTYPE).copy()
+
+    L.ensure_aux()
+    M = L.aux_weight()
+    m_dense = {}        # M on the device, for this solve's dual Arnoldi runs
+    eig, aux = L.eigval, L.auxval
+    # the attainable |dz|/|z| of the backend, for the stall rule below: the
+    # JAX package's values (its device solves are complex64-refined on a
+    # TPU), kept so that the stopping tests are the same in both packages
+    eps_backend = 1e-9 if solve_backend().startswith("device") else 1e-13
+
+    z0 = complex(np.inf)
+    lam = complex(np.inf)
+    lam0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    best_dz, n_stall = np.inf, 0
+    if output:
+        print(f"Launching {update} solver...")
+        print("Iter    Res:         dz:          z:")
+
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(lam):.3e}\t{abs(z - z0):.3e}\t{z / scale}")
+            z_prev = z
+            L.params[eig] = z
+            L.params[aux] = 0.0
+            A = L(z)
+            lam_arr, V, lam_adj_arr, Vadj = eigs_pencil_pair(
+                A, M, nev=nev, v0=v0, v0_adj=v0_adj, device=device,
+                m_cache=m_dense)
+            delta_z: List[complex] = []
+            back_delta: List[complex] = []
+            L.active = [aux, eig]
+            for i in range(len(lam_arr)):
+                L.params[aux] = lam_arr[i]
+                s = Solution(L.params, V[:, i], Vadj[:, i], aux)
+                perturb(s, L, eig, order, mode="householder",
+                        normalize_series=False, device=device)
+                coeffs = s.eigval_pert[f"{eig}/Taylor"]
+                if update == "householder":
+                    f = [math.factorial(j) * c for j, c in enumerate(coeffs)]
+                    delta_z.append(householder_update(f))
+                else:
+                    num, den = pade(coeffs, num_order, order - num_order)
+                    roots = poly_roots(num)
+                    delta_z.append(complex("nan") if len(roots) == 0
+                                   else roots[np.argmin(np.abs(roots))])
+                    if np.isfinite(z0):
+                        # backward continuity check (iterative_solvers.jl:166-174)
+                        back_lam = polyval(num, z0 - z) / polyval(den, z0 - z)
+                        back_delta.append(lam0 - back_lam)
+            L.active = [eig]
+            if update != "householder" and np.isfinite(z0):
+                pick = int(np.argmin(np.abs(np.asarray(back_delta))))
+            else:
+                pick = int(np.argmin(np.abs(np.asarray(delta_z))))
+            lam = lam_arr[pick]
+            L.params[aux] = lam
+            z0 = z_prev
+            lam0 = lam
+            z = z + relax * delta_z[pick]
+            v0 = (1 - relax) * v0 + relax * V[:, pick]
+            v0_adj = (1 - relax) * v0_adj + relax * Vadj[:, pick]
+            n += 1
+            # attainable-accuracy stall: once |dz| is tiny relative to z
+            # and stops improving, accept instead of spinning to maxiter
+            stall_floor = max(tol, eps_backend * max(abs(z), 1.0))
+            adz = abs(relax * delta_z[pick])
+            if np.isfinite(adz) and adz < best_dz:
+                best_dz, n_stall = adz, 0
+            else:
+                n_stall += 1
+                if n_stall >= 3 and best_dz <= stall_floor:
+                    if output:
+                        print("dz stagnated at attainable accuracy — "
+                              "stopping.")
+                    z0 = z  # converged-at-floor: |z-z0| = 0 <= tol
+                    break
+    except SingularMatrixError:
+        flag = ITSOL_SINGULAR_EXCEPTION
+        L.params[eig] = z
+        if output:
+            print("Singular matrix: iterate may already be converged.")
+    except np.linalg.LinAlgError as e:
+        flag = ITSOL_EIGS_EXCEPTION
+        if output:
+            print(f"Inner eigensolver failed: {e}")
+    finally:
+        L.active, L.mode = saved_active, saved_mode
+
+    if flag == ITSOL_CONVERGED:
+        L.params[eig] = z
+        if output:
+            print(f"{n}\t{abs(lam):.3e}\t{abs(z - z0):.3e}\t{z / scale}")
+        if n >= maxiter:
+            flag = ITSOL_MAXITER
+        elif abs(lam) <= lam_tol:
+            flag = ITSOL_CONVERGED
+        elif abs(z - z0) <= tol:
+            flag = ITSOL_SLOW_CONVERGENCE
+        elif np.isnan(z):
+            flag = ITSOL_ISNAN
+        else:
+            flag = ITSOL_IMPOSSIBLE
+        if output:
+            print(decode_error_flag(flag))
+            print(f"Eigenvalue: {z / scale}  ({z / scale / 2 / np.pi} /2π)")
+
+    # normalization (Householder.jl:189-190)
+    with np.errstate(all="ignore"):
+        nmv = np.sqrt(v0.conj() @ (M @ v0))
+        if nmv != 0 and np.isfinite(nmv):
+            v0 = v0 / nmv
+        L1v = L(L.params[eig], 1) @ v0
+        c = np.conj(v0_adj.conj() @ L1v)
+        if c != 0 and np.isfinite(c):
+            v0_adj = v0_adj / c
+    return Solution(L.params, v0, v0_adj, eig), n, flag
 
 
 def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
@@ -82,8 +257,19 @@ def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
     (Householder.jl:70-192) on ``device``."""
     return _local_engine(L, z, maxiter=maxiter, tol=tol, relax=relax,
                          lam_tol=lam_tol, order=order, nev=nev, v0=v0,
-                         v0_adj=v0_adj, output=output, num_order=1, scale=1,
-                         device=device)
+                         v0_adj=v0_adj, output=output, update="householder",
+                         num_order=1, scale=1, device=device)
+
+
+def padesolve(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
+              lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None,
+              num_order=1, output=False, *, device="cuda"):
+    """Padé-accelerated Householder variant (Householder.jl:205-355) on
+    ``device``."""
+    return _local_engine(L, z, maxiter=maxiter, tol=tol, relax=relax,
+                         lam_tol=lam_tol, order=order, nev=nev, v0=v0,
+                         v0_adj=v0_adj, output=output, update="pade",
+                         num_order=num_order, scale=1, device=device)
 
 
 def mslp(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
@@ -93,8 +279,274 @@ def mslp(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
     on ``device``."""
     return _local_engine(L, z, maxiter=maxiter, tol=tol, relax=relax,
                          lam_tol=lam_tol, order=order, nev=nev, v0=v0,
-                         v0_adj=v0_adj, output=output, num_order=num_order,
-                         scale=scale, device=device)
+                         v0_adj=v0_adj, output=output, update="pade",
+                         num_order=num_order, scale=scale, device=device)
+
+
+# ---------------------------------------------------------------------------
+# classic iterations (iterative_solvers.jl:285-614); each factorizes through
+# ops.linsolve.factorize on the session's backend and ``device``
+
+
+def _classify(z, z0, n, maxiter, tol):
+    if n >= maxiter:
+        return ITSOL_MAXITER
+    if abs(z - z0) <= tol:
+        return ITSOL_CONVERGED
+    if np.isnan(z):
+        return ITSOL_ISNAN
+    return ITSOL_IMPOSSIBLE
+
+
+def inveriter(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0, x0=None,
+              v=None, output=False, *, device="cuda"):
+    """Newton inverse iteration (Algorithm 1 in Mehrmann & Voss 2004;
+    iterative_solvers.jl:285-347)."""
+    d = L.size
+    x0 = np.ones(d, dtype=CDTYPE) if x0 is None else np.asarray(x0, CDTYPE).copy()
+    v = np.ones(d, dtype=CDTYPE) if v is None else np.asarray(v, CDTYPE)
+    x0 = x0 / (v.conj() @ x0)
+    z = complex(z)
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            F = factorize(L(z, 0), check=True, device=device)
+            u = F.solve(L(z, 1) @ x0)
+            z = z0 - (v.conj() @ x0) / (v.conj() @ u)
+            x0 = u / (v.conj() @ u)
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, x0, None, L.eigval, L.auxval), n, flag
+
+
+def lancaster(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0, x0=None,
+              y0=None, output=False, *, device="cuda"):
+    """Lancaster's generalized Rayleigh-quotient iteration
+    (iterative_solvers.jl:378-434)."""
+    d = L.size
+    x0 = np.ones(d, dtype=CDTYPE) if x0 is None else np.asarray(x0, CDTYPE)
+    y0 = np.ones(d, dtype=CDTYPE) if y0 is None else np.asarray(y0, CDTYPE)
+    z = complex(z)
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            F = factorize(L(z), check=True, device=device)
+            xi = F.solve(x0)
+            eta = F.solve(y0, trans="H")
+            L1 = L(z, 1)
+            z = z0 - (eta.conj() @ (L(z0, 0) @ xi)) / (eta.conj() @ (L1 @ xi))
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, np.zeros(d, dtype=CDTYPE), None, L.eigval), n, flag
+
+
+def mehrmann(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0, x0=None,
+             v=None, output=False, *, device="cuda"):
+    """Mehrmann–Voss nonlinear inverse iteration with a left eigenvector at
+    convergence.
+
+    The reference ships this solver in mehrmann.jl:1-72 but never includes
+    the file (NLEVP.jl:17), leaving its hybrid ``solve`` with a dangling
+    call; the iteration body is identical to ``inveriter``.  As in the JAX
+    package, this is a working implementation: the same Newton inverse
+    iteration, plus the adjoint eigenvector (one shift-invert solve on
+    L(z)ᴴ, the step that is only a comment in mehrmann.jl:57-60)."""
+    sol, n, flag = inveriter(L, z, maxiter=maxiter, tol=tol, relax=relax,
+                             x0=x0, v=v, output=output, device=device)
+    if flag >= 0 and sol.v is not None:
+        z = sol.params[sol.eigval]
+        try:
+            F = factorize(L(z, 0), check=True, device=device)
+            y = np.asarray(sol.v, CDTYPE).conj()
+            for _ in range(2):
+                y = F.solve(y, trans="H")
+                y = y / np.linalg.norm(y)
+            sol.v_adj = y
+        except (SingularMatrixError, np.linalg.LinAlgError):
+            pass  # singular at an exact eigenvalue: keep right vector only
+    return sol, n, flag
+
+
+def juniper(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
+            output=False, *, device="cuda"):
+    """Newton on det L via the trace formula — the reference's dead
+    ``juniper`` variant (mehrmann.jl:136-187) is :func:`traceiter`."""
+    return traceiter(L, z, maxiter=maxiter, tol=tol, relax=relax,
+                     output=output, device=device)
+
+
+def guettel(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0, x0=None,
+            y0=None, output=False, *, device="cuda"):
+    """Two-sided Rayleigh-functional iteration — the reference's dead
+    ``guettel`` variant (mehrmann.jl:192-258) is :func:`rf2s`."""
+    return rf2s(L, z, maxiter=maxiter, tol=tol, relax=relax, x0=x0, y0=y0,
+                output=output, device=device)
+
+
+def traceiter(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
+              output=False, *, device="cuda"):
+    """Newton on det L(z) via Jacobi's trace formula
+    (iterative_solvers.jl:463-517)."""
+    z = complex(z)
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            F = factorize(L(z), check=True, device=device)
+            L1 = L(z, 1).to_dense()
+            tr = np.trace(F.solve(L1))
+            z = z0 + relax * (-1.0 / tr)
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, None, None, L.eigval), n, flag
+
+
+def rf2s(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0, x0=None,
+         y0=None, output=False, *, device="cuda"):
+    """Two-sided Rayleigh-functional iteration, cubic convergence
+    (Algorithm 4.9 of Güttel & Tisseur; iterative_solvers.jl:548-614)."""
+    d = L.size
+    if x0 is None:
+        x0 = np.zeros(d, dtype=CDTYPE)
+        x0[0] = 1.0
+    if y0 is None:
+        y0 = np.zeros(d, dtype=CDTYPE)
+        y0[0] = 1.0
+    x0 = np.asarray(x0, CDTYPE) / np.sqrt(np.asarray(x0, CDTYPE).conj() @ x0)
+    y0 = np.asarray(y0, CDTYPE) / np.sqrt(np.asarray(y0, CDTYPE).conj() @ y0)
+    z = complex(z)
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            F = factorize(L(z), check=True, device=device)
+            L1 = L(z, 1)
+            x0 = F.solve(L1 @ x0)
+            y0 = F.solve(L1.conj_transpose() @ y0, trans="H")
+            x0 = x0 / np.sqrt(x0.conj() @ x0)
+            y0 = y0 / np.sqrt(y0.conj() @ y0)
+            idx = 0
+            z00 = complex(np.inf)
+            while abs(z - z00) > tol and idx < 10:
+                z00 = z
+                z = z - (y0.conj() @ (L(z) @ x0)) / (y0.conj() @ (L(z, 1) @ x0))
+                idx += 1
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, x0, y0, L.eigval), n, flag
+
+
+def nicoud(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
+           n_eig_val=3, v0=None, output=False, *, device="cuda"):
+    """Fixed-point iteration on the companion linearization
+    [0 -I; K+Q(ω₀)  C] x = -ω [I 0; 0 M] x (nicoud.jl:1-85).
+
+    Legacy method: densifies the 2d×2d companion pencil — O(d²) memory —
+    appropriate only for the small-model regime it historically served."""
+    M = L(1, oplist=["M"], in_or_ex=True).to_dense()
+    K = L(1, oplist=["K"], in_or_ex=True).to_dense()
+    C = L(1, oplist=["C"], in_or_ex=True).to_dense()
+    d = M.shape[0]
+    I = np.eye(d, dtype=CDTYPE)
+    O = np.zeros((d, d), dtype=CDTYPE)
+    Y = np.block([[I, O], [O, M]])
+    if v0 is None:
+        v0 = np.ones(d, dtype=CDTYPE)
+    z = complex(z)
+    v0 = np.concatenate([v0, z * v0])
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            Q = L(z, oplist=["Q"], in_or_ex=True).to_dense()
+            X = np.block([[O, -I], [K + Q, C]])
+            lam, V = eigs_shift_invert(-X, Y, nev=n_eig_val, sigma=z0, v0=v0,
+                                       device=device)
+            idx = int(np.argmin(np.abs(lam - z0)))
+            z, v0 = lam[idx], V[:, idx]
+            z = z0 + relax * (z - z0)
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, v0[:d], None, L.eigval), n, flag
+
+
+def picard(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
+           n_eig_val=3, v0=None, output=False, *, device="cuda"):
+    """ω²-fixed-point iteration: ω² = eig of (-(K+ωC+Q), M) nearest ω₀²
+    (picard.jl:1-77; the shift is taken at ω₀² — the eigenvalues of the
+    linearized pencil live on the ω² scale).
+
+    Legacy method: the nonzero-shift inner eigensolve densifies the pencil
+    (O(d²) memory); appropriate only for small models."""
+    d = L.size
+    if v0 is None:
+        v0 = np.ones(d, dtype=CDTYPE)
+    M = L(1, oplist=["M"], in_or_ex=True)
+    z = complex(z)
+    z0 = complex(np.inf)
+    n = 0
+    flag = ITSOL_CONVERGED
+    try:
+        while abs(z - z0) > tol and n < maxiter:
+            if output:
+                print(f"{n}\t{abs(z - z0):.3e}\t{z}")
+            z0 = z
+            X = L(z0, oplist=["M", "__aux__"])  # exclude mass + aux terms
+            lam, V = eigs_shift_invert(X.scaled(-1.0), M, nev=n_eig_val,
+                                       sigma=z0 ** 2, v0=v0, device=device)
+            lam = np.sqrt(lam)
+            idx = int(np.argmin(np.abs(lam - z0)))
+            z, v0 = lam[idx], V[:, idx]
+            z = z0 + relax * (z - z0)
+            n += 1
+    except (SingularMatrixError, np.linalg.LinAlgError):
+        flag = ITSOL_UNKNOWN
+    if flag == ITSOL_CONVERGED:
+        flag = _classify(z, z0, n, maxiter, tol)
+        L.params[L.eigval] = z
+    return Solution(L.params, v0, None, L.eigval), n, flag
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +650,7 @@ def compute_moment_matrices(L: OperatorFamily, Gamma, V=None, l=5, K=1,
     with phase("beyn.moments"):
         for idx in range(start, len(zs)):
             z, w = zs[idx], ws[idx]
-            X = factorize(L(z), check=True).solve(V)
+            X = factorize(L(z), check=True, backend="host").solve(V)
             zp = w
             for p in range(2 * K):
                 A[:, :, p] += zp * X
@@ -438,35 +890,184 @@ def count_poles_and_zeros(L: OperatorFamily, Gamma, N=16, output=False):
     zs, ws = gauss_nodes(Gamma, N)
     total = 0.0 + 0.0j
     for z, w in zip(zs, ws):
-        F = factorize(L(z), check=True)
+        F = factorize(L(z), check=True, backend="host")
         L1 = L(z, 1).to_dense()
         total += w * np.trace(F.solve(L1))
     return total / (2 * np.pi * 1j)
 
 
-def generate_subspace(L: OperatorFamily, Y, tol, Z, N=None, output=False,
-                      include_Y=True):
-    """Residual-controlled projection subspace (beyn.jl:429-569): not
-    ported yet."""
-    raise NotImplementedError(
-        "generate_subspace needs the host _local_engine (ROADMAP.md Queue "
-        "1 item 3)")
+# ---------------------------------------------------------------------------
+# residual-controlled projection subspace (beyn.jl:429-595)
 
 
-def solve(L: OperatorFamily, Gamma, *args, **kwargs):
-    """Hybrid global-local solver (solver.jl): not ported yet.  Its local
-    refinement calls householder(..., order=3), which needs the host
-    _local_engine."""
-    raise NotImplementedError(
-        "solve needs householder(order=3), the host _local_engine "
-        "(ROADMAP.md Queue 1 item 3)")
+def generate_subspace(L: OperatorFamily, Y, tol, Z, N: Optional[int] = None,
+                      output=False, include_Y=True, *, device="cuda"):
+    """Orthonormal basis Q such that ‖L(z)(Q x_z) − Y‖ < tol for every
+    sample point z (generate_subspace, beyn.jl:429-569).  Z is either a
+    list of sample points or, if N is given, polygon vertices that are
+    expanded into N Gauss-Legendre nodes per edge.
+
+    Matrix-free: the projected operator QᴴL(z)Q is built from sparse CSR
+    matmats (O(nnz·q) per sample) and the exact solves go through
+    :func:`..ops.linsolve.factorize` on ``device``."""
+    Y = np.asarray(Y, dtype=CDTYPE)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    d, k = Y.shape
+    if N is not None:
+        Z, _ = gauss_nodes(Z, N)
+    cols = []
+    if include_Y:
+        for kk in range(k):
+            cols.append(Y[:, kk])
+    else:
+        F = factorize(L(Z[0]), check=True, device=device)
+        for kk in range(k):
+            cols.append(F.solve(Y[:, kk]))
+    Q = np.linalg.qr(np.stack(cols, axis=1))[0]
+    resnorm = []
+    for z in Z:
+        if Q.shape[1] >= d:
+            break
+        Lz = L(z)
+        LQ = Lz @ Q                       # sparse matmat, O(nnz·q)
+        QLQ = Q.conj().T @ LQ
+        QY = Q.conj().T @ Y
+        F = None
+        for kk in range(k):
+            x = np.linalg.solve(QLQ, QY[:, kk])
+            res = np.linalg.norm(LQ @ x - Y[:, kk])
+            if res > tol:
+                if F is None:
+                    F = factorize(Lz, check=True, device=device)
+                Xe = F.solve(Y[:, kk])
+                # orthogonalize against Q and append
+                h = Q.conj().T @ Xe
+                w = Xe - Q @ h
+                w -= Q @ (Q.conj().T @ w)
+                nw = np.linalg.norm(w)
+                if nw > 1e-14:
+                    Q = np.concatenate([Q, (w / nw)[:, None]], axis=1)
+                    LQ = np.concatenate([LQ, (Lz @ (w / nw))[:, None]],
+                                        axis=1)
+                    QLQ = Q.conj().T @ LQ
+                    QY = Q.conj().T @ Y
+                x = np.linalg.solve(QLQ, QY[:, kk])
+                res = np.linalg.norm(LQ @ x - Y[:, kk])
+            resnorm.append(res)
+    return Q, np.asarray(resnorm)
 
 
-__all__ = ["ITSOL_CONVERGED", "ITSOL_MAXITER", "ITSOL_SLOW_CONVERGENCE",
-           "ITSOL_IMPOSSIBLE", "ITSOL_SINGULAR_EXCEPTION",
-           "ITSOL_EIGS_EXCEPTION", "ITSOL_ISNAN", "ITSOL_UNKNOWN",
-           "decode_error_flag", "householder", "mslp", "gauss_nodes",
-           "initialize_V", "compute_moment_matrices", "moments2eigs", "wn",
-           "inpoly", "pos_test", "row_equilibrated_residual",
-           "verify_eigenpairs", "beyn", "count_poles_and_zeros",
-           "generate_subspace", "solve"]
+# ---------------------------------------------------------------------------
+# hybrid global-local solve (solver.jl:36-184)
+
+
+def solve(L: OperatorFamily, Gamma, dl=1, N=16, tol=1e-8, eigvals=None,
+          maxcycles=1, nev=1, max_outer_cycles=1, atol_sigma=1e-12,
+          rtol_sigma=1e-8, loglevel=0, backend: str = "auto", *,
+          device="cuda", **solver_kw):
+    """Hybrid solver: low-order Beyn integral → local refinement of each
+    estimate → analytic rank-one correction of the moment matrices with the
+    converged eigenpairs → repeat; the outer loop grows the search space by
+    Δl columns.  (solve, solver.jl:36-184; the reference's dangling
+    ``mehrmann`` call is replaced by :func:`householder`, which returns the
+    adjoint eigenvectors the moment correction needs.)
+
+    ``backend`` routes the contour quadrature as :func:`beyn` does
+    (:func:`_moments_backend`; JAX's default is "host"); the local
+    refinement is ``householder(order=3)`` on the session's solve backend;
+    both on ``device``."""
+    if eigvals is None:
+        eigvals = {}
+    d = L.size
+    A: List[np.ndarray] = []
+    probe_rows: List[List[int]] = []  # which unit vector each column probes
+    l = dl
+    sigma_max = sigma0 = sigma = 0.0
+    while l <= max_outer_cycles * dl:
+        V = np.zeros((d, dl), dtype=CDTYPE)
+        rows = [((l - dl) + ll) % d for ll in range(dl)]
+        for ll, row in enumerate(rows):
+            V[row, ll] = 1.0
+        probe_rows.append(rows)
+        A.append(_moments_backend(L, Gamma, V, 1, N, backend,
+                                  output=loglevel >= 2, device=device,
+                                  **solver_kw)[0])
+        if l > dl:
+            _, _, S = moments2eigs(A, return_sigma=True)
+            sigma_max, sigma0, sigma = max(sigma_max, S.max()), S.max(), 0.0
+        # correct with known eigenpairs
+        for om, (s, inside) in eigvals.items():
+            w = wn(om, Gamma)
+            for ll in range(dl):
+                moment = (-2j * np.pi * w * s.v
+                          * np.conj(s.v_adj[probe_rows[-1][ll]]))
+                A[-1][:, ll, 0] += moment
+                A[-1][:, ll, 1] += om * moment
+        n_inside = sum(1 for _, inside in eigvals.values() if inside)
+        cycle = 0
+        while cycle < maxcycles:
+            cycle += 1
+            Om, P, S = moments2eigs(A, return_sigma=True)
+            sigma_max, sigma0, sigma = max(sigma_max, sigma), sigma, S.max()
+            scale_G = max(abs(g) for g in Gamma)
+            for idx in range(len(Om)):
+                om = Om[idx]
+                # skip wildly out-of-range estimates produced by near-zero
+                # singular values of the moment pencil
+                if not np.isfinite(om) or abs(om) > 100 * scale_G:
+                    continue
+                v0 = P[:, idx]
+                v0 = v0 / np.sqrt(v0.conj() @ v0)
+                for _, (s, _inside) in eigvals.items():
+                    v = s.v / np.sqrt(s.v.conj() @ s.v)
+                    v0 = v0 - (v.conj() @ v0) * v
+                    nv = np.sqrt(np.abs(v0.conj() @ v0))
+                    if nv > 0:
+                        v0 = v0 / nv
+                s, nn, flag = householder(L, om, maxiter=10, tol=tol,
+                                          output=loglevel >= 2, order=3,
+                                          nev=nev, v0=v0, device=device)
+                om = s.params[s.eigval]
+                # verified acceptance, as in the JAX package: flag ≥ 0 and
+                # a small row-equilibrated eigenpair residual (the
+                # reference accepts any flag ≥ 0, solver.jl:118-127)
+                Lz = L(om)
+                resid = row_equilibrated_residual(Lz, s.v)
+                is_new = (flag >= 0 and resid < max(1e-8, tol)
+                          and all(abs(om - known) >= 10 * tol
+                                  for known in eigvals))
+                if loglevel >= 2:
+                    print(f"conv:{om} flag:{flag} new:{is_new}")
+                if is_new and inpoly(om, Gamma):
+                    w = wn(om, Gamma)
+                    for aidx in range(len(A)):
+                        for ll in range(dl):
+                            moment = (-2j * np.pi * w * s.v
+                                      * np.conj(s.v_adj[probe_rows[aidx][ll]]))
+                            A[aidx][:, ll, 0] += moment
+                            A[aidx][:, ll, 1] += om * moment
+                    eigvals[om] = [s, True]
+                elif is_new:
+                    eigvals[om] = [s, False]
+            new_inside = sum(1 for _, inside in eigvals.values() if inside)
+            if new_inside == n_inside:
+                break
+            n_inside = new_inside
+        if sigma_max > 0 and (sigma / sigma_max < rtol_sigma or sigma < atol_sigma):
+            break
+        l += dl
+    return eigvals
+
+
+__all__ = [
+    "decode_error_flag", "householder_update", "householder", "padesolve",
+    "mslp", "inveriter", "lancaster", "traceiter", "rf2s", "nicoud",
+    "picard", "mehrmann", "juniper", "guettel", "beyn", "gauss_nodes",
+    "initialize_V", "compute_moment_matrices", "moments2eigs", "wn",
+    "inpoly", "pos_test", "count_poles_and_zeros", "generate_subspace",
+    "solve", "verify_eigenpairs", "row_equilibrated_residual",
+    "ITSOL_CONVERGED", "ITSOL_MAXITER", "ITSOL_SLOW_CONVERGENCE",
+    "ITSOL_IMPOSSIBLE", "ITSOL_SINGULAR_EXCEPTION", "ITSOL_EIGS_EXCEPTION",
+    "ITSOL_ISNAN", "ITSOL_UNKNOWN",
+]

@@ -1,9 +1,13 @@
-"""Host shifted linear solves: the reference's UMFPACK role.
+"""Shifted linear solves: the reference's UMFPACK role.
 
-Host numpy/scipy, copied from the JAX package's ``ops/linsolve.py`` without
-its device branches: scipy SuperLU for large sparse systems, LAPACK dense
-LU below ``SPARSE_LU_MIN_DIM``.  The port uses it in the complex128 polish
-after the fused device loop (:mod:`..nlevp.fused_local`).
+Counterpart of the JAX package's ``ops/linsolve.py``.  The "host" backend
+is numpy/scipy: SuperLU for large sparse systems, LAPACK dense LU below
+``SPARSE_LU_MIN_DIM``, a least-squares solve for the exactly singular
+L(0,0) of the perturbation recurrence.  The other backends ("device",
+"device_lu", "device_gmres", ``utils.config``) go to
+:func:`.device_solve.device_factorize`, which factors on ``device``.  The
+complex128 polish after the fused device loop (:mod:`..nlevp.fused_local`)
+and Beyn's "host" backend ask for "host" whatever the session default.
 """
 from __future__ import annotations
 
@@ -54,6 +58,28 @@ class DenseLU(Factorization):
                             trans=t, check_finite=False)
 
 
+class DenseQRLstsq(Factorization):
+    """Least-squares (pivoted QR/SVD) fallback for exactly singular systems.
+
+    The reference factorizes the (by construction singular) L(0,0) of the
+    perturbation recurrence with ``lu(·, check=false)`` and falls back to a
+    sparse QR when LU fails (perturbation.jl:329-332, 385-388); this is the
+    equivalent minimum-norm solve."""
+
+    def __init__(self, A: np.ndarray):
+        self.A = np.asarray(A, dtype=CDTYPE)
+
+    def solve(self, b, trans: str = "N"):
+        A = self.A
+        if trans == "T":
+            A = A.T
+        elif trans == "H":
+            A = A.conj().T
+        x, *_ = sla.lstsq(A, np.asarray(b, dtype=CDTYPE), check_finite=False,
+                          lapack_driver="gelsd")
+        return x
+
+
 class SparseLU(Factorization):
     """Sparse LU (SuperLU) — the direct counterpart of the reference's
     UMFPACK factorization (SparseArrays.lu).  A matrix SuperLU refuses (an
@@ -85,23 +111,65 @@ class SparseLU(Factorization):
 SPARSE_LU_MIN_DIM = 600
 
 
-def factorize(A: Union[CSR, np.ndarray], check: bool = False) -> Factorization:
-    """Factorize for repeated shifted solves (the UMFPACK role,
-    Householder.jl:100-101): SuperLU from ``SPARSE_LU_MIN_DIM`` on, dense
-    LAPACK LU below, and, as in the JAX package's host ``factorize``, a
-    dense LU retry of a sparse factorization that failed.  ``check``
-    raises :class:`SingularMatrixError` only if the dense LU fails too."""
+def _host_factor(A: Union[CSR, np.ndarray]) -> Factorization:
+    """SuperLU from ``SPARSE_LU_MIN_DIM`` on, else (or where SuperLU
+    fails) dense LAPACK LU."""
     if isinstance(A, CSR):
         if A.shape[0] >= SPARSE_LU_MIN_DIM:
             F = SparseLU(A)
             if F.ok:
                 return F
         A = A.to_dense()
-    F = DenseLU(A)
+    return DenseLU(A)
+
+
+def factorize(A: Union[CSR, np.ndarray], check: bool = False,
+              backend: str | None = None, device="cuda") -> Factorization:
+    """Factorize for repeated shifted solves (the UMFPACK role,
+    Householder.jl:100-101).  ``backend`` overrides the session default
+    (``utils.config.solve_backend()``): "host" is SuperLU from
+    ``SPARSE_LU_MIN_DIM`` on, dense LAPACK LU below, and, as in the JAX
+    package, a dense LU retry of a sparse factorization that failed; the
+    others factor on ``device`` (:mod:`.device_solve`).  ``check`` raises
+    :class:`SingularMatrixError` where the factorization failed."""
+    from ..utils.config import solve_backend
+    backend = backend or solve_backend()
+    if backend != "host":
+        from .device_solve import device_factorize
+        F = device_factorize(A, backend, device)
+        if check and not F.ok:
+            raise SingularMatrixError(
+                "device LU factorization failed (singular matrix)")
+        return F
+    F = _host_factor(A)
     if check and not F.ok:
         raise SingularMatrixError("LU factorization failed (singular matrix)")
     return F
 
 
-__all__ = ["Factorization", "DenseLU", "SparseLU", "factorize",
+def factorize_with_fallback(A: Union[CSR, np.ndarray],
+                            device="cuda") -> Factorization:
+    """LU if it exists, else least-squares QR (the reference's
+    lu-then-qr strategy for the singular L(0,0), perturbation.jl:329-332).
+    On a device backend (the session's) a failed device LU falls back to
+    the host path."""
+    from ..utils.config import solve_backend
+    backend = solve_backend()
+    if backend != "host":
+        from .device_solve import device_factorize
+        F = device_factorize(A, backend, device)
+        if F.ok:
+            return F
+    F = _host_factor(A)
+    if F.ok:
+        return F
+    return DenseQRLstsq(A.to_dense() if isinstance(A, CSR) else A)
+
+
+def solve(A, b, trans: str = "N", device="cuda"):
+    return factorize(A, device=device).solve(b, trans)
+
+
+__all__ = ["Factorization", "DenseLU", "DenseQRLstsq", "SparseLU",
+           "factorize", "factorize_with_fallback", "solve",
            "SingularMatrixError", "SPARSE_LU_MIN_DIM"]

@@ -7,7 +7,9 @@ Two numeric regimes, as in the JAX package:
 * **device precision** for the device step: complex64 for the inner
   solvers (the slab factorization and the block-Thomas kernel, the dense
   GMRES kernel), complex128 for the residual refinement and the Rayleigh
-  quotients.
+  quotients.  The general local engine's ``DeviceLU`` and ``DeviceGMRES``
+  (:mod:`..ops.device_solve`) compute in complex128, as the JAX package's
+  do on every device but a TPU.
 
 Reduced-precision matrix passes broke GMRES orthogonality and the
 coefficient contractions in the JAX package, which forces full float32
@@ -34,26 +36,29 @@ DEVICE_CDTYPE = torch.complex64
 
 
 # ---------------------------------------------------------------------------
-# shifted-solve backend (the reference's UMFPACK role).  The port implements
-# the fused device engine only; the host engine is ROADMAP.md Queue 1,
-# "host _local_engine with perturbation.py".
+# shifted-solve backend (the reference's UMFPACK role), the JAX package's
+# four values:
+#   'host'         scipy SuperLU / LAPACK on the host
+#   'device'       DeviceLU (dense LU) up to DEVICE_DENSE_MAX_DIM, DeviceGMRES
+#                  above, on the solver's ``device``
+#   'device_lu' / 'device_gmres'   force one of the two
+# The port's default is "device", where the JAX package's is "host": the
+# port's entry points run on the card unless the caller asks for the CPU.
+# There is no environment variable; call set_solve_backend.
 
-_SOLVE_BACKENDS = ("device",)
+_SOLVE_BACKENDS = ("host", "device", "device_lu", "device_gmres")
 _solve_backend = "device"
 
 
 def solve_backend() -> str:
-    """Current default backend of the local eigensolvers."""
+    """Current default backend of :func:`..ops.linsolve.factorize`."""
     return _solve_backend
 
 
 def set_solve_backend(backend: str) -> str:
-    """Set the default shifted-solve backend; returns the previous value."""
+    """Set the default shifted-solve backend; returns the previous value
+    (so callers can restore it)."""
     global _solve_backend
-    if backend == "host" or backend.startswith("device_"):
-        raise NotImplementedError(
-            f"solve backend {backend!r} is not ported yet (ROADMAP.md "
-            "Queue 1: host _local_engine with perturbation.py)")
     if backend not in _SOLVE_BACKENDS:
         raise ValueError(f"unknown solve backend {backend!r}; "
                          f"one of {_SOLVE_BACKENDS}")
