@@ -26,7 +26,18 @@ their real size, each with the launch counters set to 0 just before it:
   order-16 perturbation series in n with its Padé [8/8] value, and
   ``householder(order=2)`` at 437 DOF on the "device_gmres" backend, each
   against pinned JAX host values; then a report of ``DeviceGMRES``'s
-  refined residual on the 7,259-DOF operator (ROADMAP.md Queue 3, F4).
+  refined residual on the 7,259-DOF operator (ROADMAP.md Queue 3, F4);
+* path F, the matrix-free contour: Beyn on the 55,401-DOF passive family
+  (``rijke_mesh(3, 12, 12)`` octosplit twice) through the panel GMRES with
+  the ``MultiGrid`` V-cycle over the 7,415- and 999-DOF ancestors
+  (``ops/panel_solve``: plain PyTorch, no kernel of its own), against the
+  pinned JAX host Beyn modes;
+* path G, the parameter study: ``track_branch`` over six flame delays τ on
+  the 4,087-DOF active family (each ``mslp`` through the slab engine and
+  K3, each Taylor jet through ``DeviceLU``), and the two-point Padé of its
+  first two jets, against pinned JAX host values; then K3 against its
+  plain version on the first and the last of G1's own K3 inputs, at G's
+  slab shape (2, 18, 256).
 
 Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -136,6 +147,30 @@ OMEGA_437_H2 = 1074.9363291293967 + 373.15894122636877j
 #: relative residual its refined solve returns for the rhs
 #: default_rng(0) normal + 1j·normal, for "N" and "H" (ROADMAP Queue 3 F4)
 F4_JAX_RELRES = (0.04042617386794759, 0.015015369539456725)
+#: path F: the passive family on rijke_mesh(n_rings=3, nz_cold=12,
+#: nz_hot=12) and its first and second octosplit: (n, nnz) per level
+PANEL_LEVELS = ((999, 13831), (7415, 103387), (55401, 764449))
+#: JAX host Beyn (complex128 SuperLU per node) on the 55,401-DOF level,
+#: over CONTOUR with CONTOUR_KW, computed on the CPU with the JAX package by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py beyn55k
+OMEGA_55K = (1710.3374635599298 + 1.3872286915322489e-08j,
+             4363.757748186899 - 1.7946134867430164e-09j)
+#: path G: JAX track_branch(L4087, "τ", linspace(1e-3, 2e-3, 6), Z0,
+#: order=2) on its "host" backend, computed on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py track
+#: each point's ω and flag, and multipoint_pade(2, 3, ...) of the first two
+#: jets at their midpoint
+TRACK_TAUS = np.linspace(1e-3, 2e-3, 6)
+TRACK_4087_OMEGA = (1086.759945650055 + 377.1180345556135j,
+                    1027.2698461922564 + 440.5132184709328j,
+                    959.5543980782559 + 487.0420955618803j,
+                    891.2832282679909 + 516.8965740155245j,
+                    827.2628863887685 + 533.6289013387345j,
+                    769.3692291098627 + 541.1393130877415j)
+TRACK_4087_FLAGS = (0, 0, 0, 0, 0, 0)
+PADE2PT_4087 = 1058.5523879995233 + 410.709142172364j
+#: path G's bars: each ω and the two-point Padé value, relative
+TRACK_RTOL = 1e-8
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -273,11 +308,43 @@ def read_counts():
     return {fn.__name__: (fn.launches, fn.twin_calls) for fn in _wrappers()}
 
 
-def phase_compare_k3():
-    """K3 against slab_thomas_ref on the card, at the slice's shapes."""
+def _compare_k3(st, b, label):
+    """K3 against slab_thomas_ref on the card on one input (stream
+    [sides, 2m, s, s], rhs [sides, m, s]): print its line, check it at
+    K3_RTOL and return its record."""
     from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (
         slab_thomas, slab_thomas_ref)
     from wavesandeigenvalues_jl_tpu_torch.utils.timing import device_ms
+    sides, m, s = b.shape
+    ref = slab_thomas_ref(st, b)
+    err, _ = _max_err(lambda: slab_thomas(st, b), ref, f"K3 {label}")
+    rel = err / ref.abs().max().item()
+    ms = _median_ms(lambda: slab_thomas(st, b))
+    dev_ms = device_ms(lambda: slab_thomas(st, b))
+    plain_ms = _median_ms(lambda: slab_thomas_ref(st, b))
+    # stream read once, bt read once, x written once; 8 flops per
+    # complex multiply-add of the 2m [1,s]x[s,s] products
+    bound_ms, bound_by = bound(
+        8 * (st.numel() + 2 * b.numel()), 8 * sides * 2 * m * s * s)
+    gbs = sides * 2 * m * s * s * 8 / (dev_ms * 1e-3) / 1e9
+    print(f"K3 (sides, m, s)=({sides}, {m}, {s}) {label}: max abs err over "
+          f"{REPEATS} launches {err:.3e} rel {rel:.3e} (tol "
+          f"{K3_RTOL:.0e}) | kernel {ms:.4f} ms a call with the host's "
+          f"launch, {dev_ms:.4f} ms on the device ({gbs:.1f} GB/s of "
+          f"stream, {dev_ms / (2 * m) * 1e3:.2f} us a step), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
+          "single PyTorch call computes the block recursion",
+          flush=True)
+    check(rel <= K3_RTOL,
+          f"K3 {label} disagrees with its plain version: {rel}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms, "library_device_ms": None}
+
+
+def phase_compare_k3():
+    """K3 against slab_thomas_ref on the card, at the slice's shapes, on
+    seeded random inputs."""
     out = {}
     for sides, m, s in K3_SHAPES:
         rng = np.random.default_rng(m * s)
@@ -286,33 +353,9 @@ def phase_compare_k3():
                   * (0.5 / s)).astype(np.complex64)
         bt = (rng.standard_normal((sides, m, s))
               + 1j * rng.standard_normal((sides, m, s))).astype(np.complex64)
-        st = torch.from_numpy(stream).cuda()
-        b = torch.from_numpy(bt).cuda()
-        ref = slab_thomas_ref(st, b)
-        err, _ = _max_err(lambda: slab_thomas(st, b), ref, f"K3 {shp}")
-        rel = err / ref.abs().max().item()
-        ms = _median_ms(lambda: slab_thomas(st, b))
-        dev_ms = device_ms(lambda: slab_thomas(st, b))
-        plain_ms = _median_ms(lambda: slab_thomas_ref(st, b))
-        # stream read once, bt read once, x written once; 8 flops per
-        # complex multiply-add of the 2m [1,s]x[s,s] products
-        bound_ms, bound_by = bound(
-            8 * (st.numel() + 2 * b.numel()), 8 * sides * 2 * m * s * s)
-        gbs = sides * 2 * m * s * s * 8 / (dev_ms * 1e-3) / 1e9
-        print(f"K3 (sides, m, s)=({sides}, {m}, {s}): max abs err over "
-              f"{REPEATS} launches {err:.3e} rel {rel:.3e} (tol "
-              f"{K3_RTOL:.0e}) | kernel {ms:.4f} ms a call with the host's "
-              f"launch, {dev_ms:.4f} ms on the device ({gbs:.1f} GB/s of "
-              f"stream, {dev_ms / (2 * m) * 1e3:.2f} us a step), plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
-              "single PyTorch call computes the block recursion",
-              flush=True)
-        check(rel <= K3_RTOL, f"K3 disagrees with its plain version: {rel}")
-        out[(sides, m, s)] = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None,
-                              "device_ms": dev_ms,
-                              "library_device_ms": None}
+        out[(sides, m, s)] = _compare_k3(torch.from_numpy(stream).cuda(),
+                                         torch.from_numpy(bt).cuda(),
+                                         "random")
     return out
 
 
@@ -1128,6 +1171,189 @@ def phase_general_engine(card, L7259):
     check(all(np.isfinite(relres)), f"F4: relres not finite {relres}")
 
 
+def phase_panel_path(card):
+    """Path F: Beyn on the card at 55,401 DOF through the panel GMRES and
+    the MultiGrid V-cycle (``beyn(..., backend="gmres", coarse=mg)`` at the
+    solver's defaults), with the counters set to 0 just before it (the
+    panel solver is plain PyTorch: no kernel of the port runs here).
+    Checks the mode count and each mode within CONTOUR_RTOL·f of the
+    pinned JAX host Beyn, max relres ≤ CONTOUR_RELRES and no shift left
+    above refine_tol."""
+    from wavesandeigenvalues_jl_tpu_torch.mesh.generate import rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.mesh.refine import (octosplit,
+                                                              p1_prolongation)
+    from wavesandeigenvalues_jl_tpu_torch.models import discretize
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        passive_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
+    from wavesandeigenvalues_jl_tpu_torch.ops.panel_solve import (
+        PANEL_BUDGET, MultiGrid)
+
+    # the families of large_operator_family(3, 12, 12, refine=r), r = 0..2,
+    # on one chain of meshes, and the prolongations between them
+    t0 = time.perf_counter()
+    meshes = [rijke_mesh(n_rings=3, nz_cold=12, nz_hot=12)]
+    for _ in range(2):
+        meshes.append(octosplit(meshes[-1]))
+    L0, L1, L2 = (discretize(m, *passive_rijke_setup(m)) for m in meshes)
+    P0, P1 = (p1_prolongation(m) for m in meshes[:2])
+    build = time.perf_counter() - t0
+    sizes = tuple((L.size, L._stack().nnz) for L in (L0, L1, L2))
+    check(sizes == PANEL_LEVELS, f"path F levels {sizes}, expected "
+          f"{PANEL_LEVELS}")
+    t0 = time.perf_counter()
+    mg = MultiGrid([L1, L0], [P1, P0], bs=64)
+    mg_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    Om, P, res, info = beyn(L2, CONTOUR, backend="gmres", coarse=mg,
+                            return_residuals=True, return_info=True,
+                            **CONTOUR_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    tm = info["solver_timings"]
+    f, f_ref = _hz(Om), _hz(OMEGA_55K)
+    rel = (np.abs(f - f_ref) / f_ref if len(f) == len(f_ref)
+           else np.full(len(f_ref), np.inf))
+    fmt = lambda xs: "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"  # noqa
+    sig = info["sigma"]
+    print(f"main path F (panel GMRES contour) on {card}: n={L2.size} "
+          f"nnz={sizes[2][1]}, MultiGrid levels n={sizes[1][0]} and "
+          f"n={sizes[0][0]} (bs 64; families and prolongations built in "
+          f"{build:.2f} s, MultiGrid in {mg_s:.2f} s) | {4 * CONTOUR_KW['N']} "
+          f"nodes x l={CONTOUR_KW['l']}: {tm['chunks']} device passes of up "
+          f"to {tm['chunk']} shifts (budget {PANEL_BUDGET:.1e} B), "
+          f"{tm['restarts'] / max(tm['solves'], 1):.3f} restarts a solve "
+          f"({tm['solves']} solves), {tm['sweeps']} refinement sweeps | modes "
+          f"Hz {', '.join(f'{x:.8f}' for x in f)} rel err {fmt(rel)} (tol "
+          f"{CONTOUR_RTOL:.0e}) | eigenpair residuals {fmt(res)} | max relres "
+          f"{info['max_relres']:.3e} (bar {CONTOUR_RELRES:.0e}), shifts above "
+          f"refine_tol {len(info['unconverged'])} | Hankel singular values "
+          f"{fmt(sig)} | wall {wall:.3f} s: prep_s {tm['prep_s']:.3f}, "
+          f"device_s {tm['device_s']:.3f}, residual_s {tm['residual_s']:.3f} "
+          f"| peak device memory {peak / 2**20:.1f} MiB | launches, plain "
+          f"calls {counts}", flush=True)
+    check(len(Om) == len(OMEGA_55K),
+          f"path F found {len(Om)} modes, JAX host {len(OMEGA_55K)}")
+    check(rel.max() <= CONTOUR_RTOL, f"path F modes off by {rel.max():.3e}")
+    check(info["max_relres"] <= CONTOUR_RELRES,
+          f"path F max relres {info['max_relres']:.3e}")
+    check(not info["unconverged"],
+          f"path F shifts above refine_tol: {info['unconverged']}")
+    check(P.shape == (L2.size, len(Om)) and np.isfinite(P).all(),
+          "path F eigenvectors not finite")
+    check(all(c == (0, 0) for c in counts.values()),
+          f"path F launched a kernel or its plain version: {counts}")
+    return wall
+
+
+def phase_param_path(card):
+    """Path G: the parameter study on the card, on the 4,087-DOF active
+    family.  G1: track_branch over TRACK_TAUS from Z0 at order 2 (each
+    mslp through the fused slab engine and K3, each order-2 jet in τ
+    through DeviceLU), with the counters set to 0 just before it; G2: the
+    [2/3] two-point Padé of G1's first two jets at their midpoint.  The
+    fused engine's hand-over to the general engine is an error here.
+    The first and the last K3 input of G1 are kept, and after the counts
+    are read K3 is held against its plain version on each.  Returns the
+    counts of G1 and the K3 record at G1's shape."""
+    import warnings
+
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_family
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import (fused_slab,
+                                                        multipoint_pade,
+                                                        track_branch)
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+    L = active_rijke_family(n_rings=4, nz_cold=32, nz_hot=32)
+    check(L.size == 4087, f"path G family dimension {L.size}")
+    k3_inputs = []
+    launch = fused_slab.slab_thomas
+
+    def keep_input(stream, bt):
+        # the first input is kept, the last overwrites the second
+        del k3_inputs[1:]
+        k3_inputs.append((stream.clone(), bt.clone()))
+        return launch(stream, bt)
+
+    fused_slab.slab_thomas = keep_input
+    try:
+        timing.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="fused device step",
+                                    category=RuntimeWarning)
+            sols, flags = track_branch(L, "τ", TRACK_TAUS, Z0, order=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        fused_slab.slab_thomas = launch
+    peak = torch.cuda.max_memory_allocated()
+    rep = timing.report()
+    none = {"calls": 0, "total_s": 0.0}
+    steps = rep.get("fused_local.device_step", none)
+    polish = rep.get("fused_local.polish_step", none)
+    pert = rep.get("perturb", none)
+    factors, factor_s = _report_sum(rep, "device_solve.factor")
+    check(all(s is not None for s in sols), f"path G: a failed point {flags}")
+    om = np.array([s.params[s.eigval] for s in sols])
+    rel = np.abs(om - np.asarray(TRACK_4087_OMEGA)) / np.abs(TRACK_4087_OMEGA)
+    jets = [np.asarray(s.eigval_pert.get("τ/Taylor", [])) for s in sols]
+    mid = 0.5 * (TRACK_TAUS[0] + TRACK_TAUS[1])
+    pade = multipoint_pade(2, 3, [(TRACK_TAUS[0], jets[0]),
+                                  (TRACK_TAUS[1], jets[1])])(mid)
+    pade_rel = abs(pade - PADE2PT_4087) / abs(PADE2PT_4087)
+    solver = L._fused_solver[1]
+    part = solver.part
+    fmt = lambda xs: "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"  # noqa
+    print(f"main path G (track_branch over tau, order 2) on {card}: "
+          f"n={L.size} {type(solver).__name__}, slab partition m={part.m} "
+          f"smax={part.smax}, K3 at (sides, m, s)=(2, {solver.m}, "
+          f"{solver.s}), {len(TRACK_TAUS)} points | G1 wall {wall:.3f} s "
+          f"({wall / len(TRACK_TAUS):.3f} s a point): {steps['calls']} fused "
+          f"device steps {steps['total_s']:.3f} s, {polish['calls']} polish "
+          f"steps {polish['total_s']:.3f} s, {pert['calls']} jets "
+          f"{pert['total_s']:.3f} s, {factors} DeviceLU factorizations "
+          f"{factor_s:.3f} s | flags {tuple(flags)} "
+          f"(JAX host {TRACK_4087_FLAGS}) | omega rel err {fmt(rel)} (tol "
+          f"{TRACK_RTOL:.0e}) | jets of order {[len(j) - 1 for j in jets]} "
+          f"| G2 two-point Pade [2/3] at tau={mid:.6g}: {complex(pade)!r} "
+          f"rel err {pade_rel:.3e} (tol {TRACK_RTOL:.0e}) | peak device "
+          f"memory {peak / 2**20:.1f} MiB | launches, plain calls {counts}",
+          flush=True)
+    check(isinstance(solver, fused_slab.FusedSlabPencilSolver),
+          f"path G: solver {type(solver).__name__}")
+    check(tuple(flags) == TRACK_4087_FLAGS, f"path G flags {flags}")
+    check(rel.max() <= TRACK_RTOL, f"path G omega off by {rel.max():.3e}")
+    check(all(len(j) == 3 for j in jets[:-1]),
+          f"path G: a jet was dropped {[len(j) for j in jets]}")
+    check(pade_rel <= TRACK_RTOL, f"path G2 Pade off by {pade_rel:.3e}")
+    check(counts["slab_thomas"][0] > 0,
+          "path G never launched slab_thomas (K3)")
+    check(len(k3_inputs) == 2, f"path G kept {len(k3_inputs)} K3 inputs")
+    check(all(t == 0 for _, t in counts.values()),
+          f"path G ran a plain kernel version: {counts}")
+    check(factors == pert["calls"] > 0,
+          f"path G: {factors} DeviceLU factorizations for "
+          f"{pert['calls']} jets")
+    recs = [_compare_k3(st, b, f"path G1 {which} launch")
+            for which, (st, b) in zip(("first", "last"), k3_inputs)]
+    check(tuple(k3_inputs[0][1].shape) == (2, solver.m, solver.s),
+          f"path G K3 input {tuple(k3_inputs[0][1].shape)}")
+    return counts, max(recs, key=lambda r: r["max_abs_err"])
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
@@ -1156,15 +1382,22 @@ def main():
     del L57k, plan
     t_e = time.perf_counter()
     phase_general_engine(card, L7259)
+    t_f = time.perf_counter()
+    phase_panel_path(card)
+    t_g = time.perf_counter()
+    param_counts, k3_g = phase_param_path(card)
     t_end = time.perf_counter()
     print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
-          f"{t_e - t_d:.2f} s, path E phases: {t_end - t_e:.2f} s of the "
-          f"run's {t_end - t_start:.2f} s", flush=True)
+          f"{t_e - t_d:.2f} s, path E phases: {t_f - t_e:.2f} s, path F: "
+          f"{t_g - t_f:.2f} s, path G: {t_end - t_g:.2f} s of the run's "
+          f"{t_end - t_start:.2f} s", flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [
         ("slab_thomas", "slab_thomas", "pallas_thomas.py:49",
          k3[K3_SHAPES[0]], slab["slab_thomas"][0]),
+        ("slab_thomas/path G", "slab_thomas", "pallas_thomas.py:49", k3_g,
+         param_counts["slab_thomas"][0]),
         ("dense_gmres", "dense_gmres", "pallas_gmres.py:50",
          k2[(2, 1408, 80, 1)], dense["dense_gmres"][0]),
         ("bsr_spmm", "bsr_spmm", "pallas_spmv.py:94", k1[128],

@@ -1,6 +1,7 @@
 """The contour slice: Beyn's solver (port nlevp/solvers.beyn), the slab
-direct solver (port ops/slab_solve.SlabSolver) and the device-batched
-quadrature (port parallel/dist_beyn) against the JAX package on the CPU.
+direct solver (port ops/slab_solve.SlabSolver), the routes to the panel
+GMRES (port ops/panel_solve) and the device-batched quadrature (port
+parallel/dist_beyn) against the JAX package on the CPU.
 
 The mesh operator is the passive Rijke family on the generated
 ``rijke_mesh(n_rings=2, nz_cold=10, nz_hot=10)`` (n = 437), built in both
@@ -34,7 +35,7 @@ from wavesandeigenvalues_jl_tpu_torch.models import discretize
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import passive_rijke_setup
 from wavesandeigenvalues_jl_tpu_torch.nlevp import load_family
 from wavesandeigenvalues_jl_tpu_torch.nlevp import solvers
-from wavesandeigenvalues_jl_tpu_torch.ops import slab_solve
+from wavesandeigenvalues_jl_tpu_torch.ops import panel_solve, slab_solve
 from wavesandeigenvalues_jl_tpu_torch.ops.slab_solve import (SlabPartition,
                                                              SlabSolver)
 from wavesandeigenvalues_jl_tpu_torch.parallel import (beyn_batched,
@@ -165,25 +166,69 @@ def test_beyn_backends_match_jax_host(families, host_pairs, route):
     np.testing.assert_allclose(f, f_host, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("call", [
-    lambda L: solvers.beyn(L, GAMMA, backend="gmres", device="cpu"),
-    lambda L: solvers.beyn(L, GAMMA, backend="matfree", restart=30,
-                           device="cpu"),
-    lambda L: beyn_batched(L, GAMMA, dense=False, method="gmres",
-                           device="cpu"),
-    lambda L: beyn_batched(L, GAMMA, dense=False, restart=30, device="cpu"),
-    lambda L: beyn_batched(L, GAMMA, mesh=object(), device="cpu"),
-    lambda L: solvers.solve(L, GAMMA, backend="gmres", device="cpu"),
-    lambda L: solvers.solve(L, GAMMA, backend="matfree", restart=30,
-                            device="cpu"),
-])
-def test_unported_routes_raise(families, call):
-    """What waits for later slices raises NotImplementedError naming its
-    ROADMAP item, before any solve.  (The hybrid ``solve`` and
-    ``generate_subspace`` are ported: what still raises there is the
-    panel GMRES of their quadrature.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        call(families[1])
+@pytest.fixture(scope="module")
+def jax_solve(families):
+    """JAX ``solve`` (the hybrid Beyn + Householder) on the passive family
+    with its quadrature on the panel GMRES."""
+    return solvers_jax.solve(families[0], GAMMA, backend="gmres")
+
+
+#: the quadrature routes that reach the panel GMRES.  The first runs at
+#: the solver's defaults (block-Jacobi bs 64, GMRES(60): ~20 s on the CPU
+#: for Beyn's 768 systems); the others take bs 256 and GMRES(30), ~10 s
+PANEL_KW = dict(restart=30, bs=256)
+PANEL_ROUTES = {
+    "beyn-gmres": lambda L: solvers.beyn(L, GAMMA, backend="gmres",
+                                         device="cpu", **BEYN_KW),
+    "beyn-matfree-kw": lambda L: solvers.beyn(
+        L, GAMMA, backend="matfree", device="cpu", **PANEL_KW, **BEYN_KW),
+    "beyn_batched-gmres": lambda L: beyn_batched(
+        L, GAMMA, dense=False, method="gmres", device="cpu", **PANEL_KW,
+        **BEYN_KW),
+    "beyn_batched-kw": lambda L: beyn_batched(
+        L, GAMMA, dense=False, device="cpu", **PANEL_KW, **BEYN_KW),
+    "solve-gmres": lambda L: solvers.solve(L, GAMMA, backend="gmres",
+                                           device="cpu"),
+    "solve-matfree-kw": lambda L: solvers.solve(
+        L, GAMMA, backend="matfree", restart=30, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("route", list(PANEL_ROUTES))
+def test_panel_routes_match_jax(families, host_pairs, jax_solve, route,
+                                monkeypatch):
+    """The quadrature routes that raised before the panel GMRES was ported
+    now solve through ShiftedPanelSolver: ``beyn`` and ``beyn_batched``
+    give JAX host Beyn's modes (the same count, each to 1e-6 Hz), and the
+    hybrid ``solve`` gives what JAX's ``solve`` gives on its panel GMRES
+    (the same eigenvalues to 1e-8·|ω|, the same inside flags)."""
+    calls = []
+    solve = panel_solve.ShiftedPanelSolver.solve
+
+    def counting(self, *a, **k):
+        calls.append(self)
+        return solve(self, *a, **k)
+
+    monkeypatch.setattr(panel_solve.ShiftedPanelSolver, "solve", counting)
+    out = PANEL_ROUTES[route](families[1])
+    assert calls
+    if route.startswith("solve"):
+        got = sorted(out.items(), key=lambda kv: kv[0].real)
+        want = sorted(jax_solve.items(), key=lambda kv: kv[0].real)
+        assert len(got) == len(want) >= 1
+        for (om, (_, inside)), (om_j, (_, inside_j)) in zip(got, want):
+            assert abs(om - om_j) <= 1e-8 * abs(om_j) and inside == inside_j
+        return
+    f, f_host = (np.sort(O.real) / 2 / np.pi for O in (out[0], host_pairs[0]))
+    assert len(f) == len(f_host)
+    np.testing.assert_allclose(f, f_host, rtol=0, atol=1e-6)
+
+
+def test_unported_routes_raise(families):
+    """What waits for a later slice raises NotImplementedError naming its
+    ROADMAP item, before any solve: the ``mesh=`` sharding (item 8)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+        beyn_batched(families[1], GAMMA, mesh=object(), device="cpu")
 
 
 def test_beyn_qep_five_of_six(qep):

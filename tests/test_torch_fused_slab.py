@@ -102,15 +102,17 @@ def test_load_family_of_jax_npz(tmp_path):
 
 
 def test_unported_settings_raise():
-    """What is still not ported raises: Beyn's "gmres" backend (the panel
-    solver, ROADMAP.md Queue 1 item 4); a solve backend the JAX package
-    does not have is refused.  (Higher orders and the "host" backend are
-    ported: tests/test_torch_local_engine.py.)"""
-    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
+    """What is still not ported raises: the sharded contour (``mesh=``,
+    ROADMAP.md Queue 1 item 8); a solve backend the JAX package does not
+    have is refused.  (Higher orders and the "host" backend are ported:
+    tests/test_torch_local_engine.py; Beyn's "gmres" backend too:
+    tests/test_torch_panel_solve.py.)"""
+    from wavesandeigenvalues_jl_tpu_torch.parallel import beyn_batched
     from wavesandeigenvalues_jl_tpu_torch.utils.config import \
         set_solve_backend
     L = active_rijke_family()
-    with pytest.raises(NotImplementedError):
-        beyn(L, [1 + 1j, 2 + 1j, 2 + 2j], backend="gmres", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        beyn_batched(L, [1 + 1j, 2 + 1j, 2 + 2j], mesh=object(),
+                     device="cpu")
     with pytest.raises(ValueError):
         set_solve_backend("tpu")

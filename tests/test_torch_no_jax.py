@@ -32,6 +32,9 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.nlevp.gallery",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.eigs",
     "wavesandeigenvalues_jl_tpu_torch.ops.slab_solve",
+    "wavesandeigenvalues_jl_tpu_torch.ops.panel_solve",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.pade",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.continuation",
     "wavesandeigenvalues_jl_tpu_torch.parallel",
     "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",
     "chip_smoke",

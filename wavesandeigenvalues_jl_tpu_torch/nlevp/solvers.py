@@ -802,10 +802,12 @@ def _moments_backend(L: OperatorFamily, Gamma, V, K: int, N: int,
     (:func:`compute_moment_matrices`); "dense" = dense solves on
     ``device`` (:func:`..parallel.dist_beyn.batched_moments`); "slab" =
     the block-tridiagonal direct solver on ``device``
-    (:func:`..parallel.dist_beyn.matfree_moments`); "matfree" = the
-    matrix-free solver the partition favours, as in the JAX package (the
-    slab solver; the panel GMRES it picks otherwise is not ported yet, nor
-    is "gmres")."""
+    (:func:`..parallel.dist_beyn.matfree_moments`); "gmres" = the
+    multigrid-preconditioned panel GMRES on ``device``
+    (:class:`..ops.panel_solve.ShiftedPanelSolver`, the same); "matfree" =
+    the matrix-free solver the partition favours, as in the JAX package
+    (the slab solver; the panel GMRES where the partition is unfavourable
+    or a GMRES keyword is passed)."""
     from ..parallel.dist_beyn import (DENSE_BEYN_MAX_DIM, batched_moments,
                                       matfree_moments)
     if backend == "auto":
@@ -813,10 +815,6 @@ def _moments_backend(L: OperatorFamily, Gamma, V, K: int, N: int,
     if backend == "host":
         return compute_moment_matrices(L, Gamma, V, K=K, N=N, output=output,
                                        checkpoint=checkpoint), {}
-    if backend == "gmres":
-        raise NotImplementedError(
-            "backend='gmres': the panel GMRES is not ported yet "
-            "(ROADMAP.md Queue 1 item 4, ops/panel_solve.py)")
     if backend == "dense":
         if solver_kw:
             import warnings
@@ -825,7 +823,8 @@ def _moments_backend(L: OperatorFamily, Gamma, V, K: int, N: int,
                 f"{sorted(solver_kw)} are ignored; pass backend='slab' to "
                 "force the slab solver", stacklevel=3)
         return batched_moments(L, Gamma, V=V, K=K, N=N, device=device), {}
-    method = {"slab": "slab", "matfree": "auto"}.get(backend)
+    method = {"slab": "slab", "gmres": "gmres",
+              "matfree": "auto"}.get(backend)
     if method is None:
         raise ValueError(f"unknown backend {backend!r} (expected 'auto', "
                          "'host', 'dense', 'slab', 'matfree' or 'gmres')")
@@ -849,13 +848,16 @@ def beyn(L: OperatorFamily, Gamma, l=5, K=1, N=16, tol=0.0, rtol=0.0,
     (:func:`verify_eigenpairs`; None keeps every candidate).  ``backend``:
     where the quadrature solves run (:func:`_moments_backend`) — by
     default on ``device``: dense solves up to DENSE_BEYN_MAX_DIM DOF, the
-    slab direct solver above; "host" is the reference's serial sparse LU
-    on the host.  Extra keywords pass to the slab solver.
+    slab direct solver above; "gmres" is the multigrid-preconditioned
+    panel GMRES (``coarse=`` a ``MultiGrid`` or ``CoarseGrid``), "matfree"
+    the one of the two the partition favours; "host" is the reference's
+    serial sparse LU on the host.  Extra keywords pass to the matrix-free
+    solver.
 
     Returns (Om, P), then the eigenpair residuals if ``return_residuals``
     and, if ``return_info``, a dict with the Hankel singular values
-    ``sigma`` and, from the slab solver, ``max_relres``, ``unconverged``
-    and ``solver_timings``."""
+    ``sigma`` and, from a matrix-free solver, ``max_relres``,
+    ``unconverged`` and ``solver_timings``."""
     d = L.size
     # minimum augmentation so the Hankel blocks can hold l probes — the
     # reference's K=max(K, l÷d + (l%d≠0)) at beyn.jl:39

@@ -4,6 +4,8 @@ from .dense_gmres import dense_gmres, dense_gmres_ref
 from .device import BsrOperator, DeviceStackedOperator, EllOperator, spmv_ell
 from .gmres import (BatchedBlockDiagInv, block_jacobi, gmres,
                     solve_shifted_batch)
+from .panel_solve import (CoarseGrid, MultiGrid, ShiftedPanelSolver,
+                          acinv_batch, solve_shifted_panel)
 from .linsolve import (DenseLU, Factorization, SingularMatrixError, SparseLU,
                        factorize, factorize_with_fallback)
 from .reorder import bandwidth, cuthill_mckee, permute_csr
@@ -23,4 +25,5 @@ __all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
            "cuthill_mckee", "permute_csr", "bandwidth", "csr_to_ell",
            "EllOperator", "spmv_ell",
            "DeviceStackedOperator", "WindowSpmm", "window_spmm",
-           "window_spmm_ref"]
+           "window_spmm_ref", "ShiftedPanelSolver", "solve_shifted_panel",
+           "CoarseGrid", "MultiGrid", "acinv_batch"]

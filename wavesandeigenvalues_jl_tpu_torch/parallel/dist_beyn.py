@@ -4,11 +4,11 @@ Counterpart of the single-device part of the JAX package's
 ``parallel/dist_beyn.py``.  The |Γ|·N quadrature solves L(z_j)⁻¹V are
 independent; they run on ``device`` either as dense solves
 (:func:`batched_moments`, small operators) or through the block-tridiagonal
-direct solver (:func:`matfree_moments`, :class:`..ops.slab_solve.SlabSolver`)
-and are reduced into the moment sums.  The dense eigen-tail (SVD + small
-eig) stays on the host.  The panel GMRES ("gmres", and "auto" where the
-slab partition is unfavourable) is ROADMAP.md Queue 1 item 4; the ``mesh``
-sharding is item 8.
+direct solver or the multigrid-preconditioned panel GMRES
+(:func:`matfree_moments`: :class:`..ops.slab_solve.SlabSolver`,
+:class:`..ops.panel_solve.ShiftedPanelSolver`) and are reduced into the
+moment sums.  The dense eigen-tail (SVD + small eig) stays on the host.
+The ``mesh`` sharding is ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 from ..nlevp.family import OperatorFamily
 from ..nlevp.solvers import (beyn, gauss_nodes, initialize_V, load_moments,
                              moments_digest, save_moments)
+from ..ops.panel_solve import ShiftedPanelSolver
 from ..ops.slab_solve import SlabSolver
 from ..ops.slab_solve import family_coefficients as _coeff_batch
 
@@ -43,28 +44,25 @@ def _no_mesh(mesh):
 
 def _make_matfree_solver(L: OperatorFamily, method: str, solver_kw: dict,
                          device):
-    """The matrix-free panel solver: "slab" (block-tridiagonal direct,
-    :mod:`..ops.slab_solve`), or "auto" — slab when the BFS slab partition
-    is favourable and no GMRES-specific keyword was passed.  The GMRES
-    panel solver that "gmres" and an unfavourable "auto" pick is not
-    ported yet."""
-    gmres = NotImplementedError(
-        "the panel GMRES (method 'gmres', or 'auto' on an unfavourable "
-        "partition) is not ported yet (ROADMAP.md Queue 1 item 4, "
-        "ops/panel_solve.py)")
+    """The matrix-free panel solver on ``device``: "slab"
+    (block-tridiagonal direct, :mod:`..ops.slab_solve`), "gmres"
+    (multigrid-preconditioned iterative, :mod:`..ops.panel_solve`), or
+    "auto": slab when the BFS slab partition is favourable and no
+    GMRES-specific keyword was passed, else gmres."""
     if method == "auto":
         if _GMRES_KW & set(solver_kw):
-            raise gmres
-        probe = SlabSolver(L, **solver_kw, device=device)
-        # favourable: enough slabs to amortize, blocks small enough for
-        # the batched dense factorization
-        if probe.part.m >= 8 and probe.part.smax <= 2048:
-            return probe
-        raise gmres
+            method = "gmres"
+        else:
+            probe = SlabSolver(L, **solver_kw, device=device)
+            # favourable: enough slabs to amortize, blocks small enough
+            # for the batched dense factorization
+            if probe.part.m >= 8 and probe.part.smax <= 2048:
+                return probe
+            method = "gmres"
     if method == "slab":
         return SlabSolver(L, **solver_kw, device=device)
     if method == "gmres":
-        raise gmres
+        return ShiftedPanelSolver(L, **solver_kw, device=device)
     raise ValueError(f"unknown matfree method {method!r} "
                      "(expected 'slab', 'gmres' or 'auto')")
 
@@ -74,8 +72,12 @@ def matfree_moments(L: OperatorFamily, Gamma, V=None, l=5, K=1, N=16,
                     checkpoint: Optional[str] = None, method: str = "auto",
                     *, device="cuda", **solver_kw):
     """Moment matrices through the matrix-free panel solver on ``device``
-    (no [d, d] matrix anywhere).  Solver keywords (``chunk``,
-    ``refine_tol``, …) pass to its constructor.
+    (no [d, d] matrix anywhere).  ``method`` selects it: "slab" = the
+    block-tridiagonal direct solver, "gmres" = the multigrid-
+    preconditioned panel GMRES, "auto" = slab where the partition is
+    favourable (:func:`_make_matfree_solver`).  Solver keywords
+    (``chunk``, ``refine_tol``, …; for gmres also ``bs``, ``tol``,
+    ``restart``, ``max_restarts``, ``coarse``) pass to its constructor.
 
     Nodes are processed in groups of ``group`` shifts (default: the solver
     chunk) and reduced into the moment sums at once, bounding host memory
@@ -84,8 +86,8 @@ def matfree_moments(L: OperatorFamily, Gamma, V=None, l=5, K=1, N=16,
     the last completed group (same digest as
     :func:`..nlevp.solvers.compute_moment_matrices`).  Returns (A, info)
     with the largest relres, the solver's ``timings`` and ``unconverged``
-    (first node, end node, max relres) of every solver chunk that ended
-    above its ``refine_tol``."""
+    (first node, end node, max relres) of every slab chunk, or every
+    panel shift, that ended above the solver's ``refine_tol``."""
     d = L.size
     if V is None:
         V = initialize_V(d, l)
@@ -173,8 +175,8 @@ def beyn_batched(L: OperatorFamily, Gamma, l=5, K=1, N=16, tol=0.0,
                  *, device="cuda", **solver_kw):
     """The JAX package's name for :func:`..nlevp.solvers.beyn` with the
     quadrature on ``device``: ``dense`` True → the "dense" backend, False
-    → the matrix-free ``method`` ("slab"; "auto" = the "matfree"
-    backend), None → "dense" up to DENSE_BEYN_MAX_DIM DOF.  Residuals
+    → the matrix-free ``method`` ("slab", "gmres"; "auto" = the
+    "matfree" backend), None → "dense" up to DENSE_BEYN_MAX_DIM DOF.  Residuals
     are always computed (``res_tol`` None keeps every candidate)."""
     _no_mesh(mesh)
     if dense is None:
