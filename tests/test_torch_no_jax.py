@@ -12,7 +12,9 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.utils.timing",
     "wavesandeigenvalues_jl_tpu_torch.mesh",
     "wavesandeigenvalues_jl_tpu_torch.mesh.refine",
+    "wavesandeigenvalues_jl_tpu_torch.mesh.annular",
     "wavesandeigenvalues_jl_tpu_torch.fem",
+    "wavesandeigenvalues_jl_tpu_torch.fem.bloch",
     "wavesandeigenvalues_jl_tpu_torch.models",
     "wavesandeigenvalues_jl_tpu_torch.nlevp",
     "wavesandeigenvalues_jl_tpu_torch.ops",
@@ -35,6 +37,7 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.ops.panel_solve",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.pade",
     "wavesandeigenvalues_jl_tpu_torch.nlevp.continuation",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.bloch_sweep",
     "wavesandeigenvalues_jl_tpu_torch.parallel",
     "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",
     "chip_smoke",

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Reference values of the JAX package, computed on the CPU, for paths F
-and G of ``chip_smoke.py`` (the PyTorch port holds itself against them).
+"""Reference values of the JAX package, computed on the CPU, for paths F,
+G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py hierarchy
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py beyn55k
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py panel2 OUT.npz
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py track
+    JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py bloch
 
 * ``hierarchy``: n and nnz of the passive Rijke family on
   ``rijke_mesh(n_rings=3, nz_cold=12, nz_hot=12)`` and its first and second
@@ -20,6 +21,14 @@ and G of ``chip_smoke.py`` (the PyTorch port holds itself against them).
   ``linspace(1e-3, 2e-3, 6)`` on the 4,087-DOF active family from 340·2π,
   order 2, each point's ω, flag and jet, and the two-point Padé
   ``multipoint_pade(2, 3, ...)`` of the first two jets at their midpoint.
+* ``bloch``: the annular combustor of path H, ``annular_halfcell(DOS=12,
+  nr=4, nphi=4, nz=48)`` extended to its unit cell (1,960 DOF once
+  reduced) and its full annulus (23,520 DOF), c = 347 m/s below z = 0.2 m
+  and 850 m/s above (per tet), ``Outlet`` Y = 1e15: JAX host ``mslp`` at
+  b = 0…6 from ``BLOCH_GUESSES``, the full annulus from the b = 1
+  frequency, ``bloch_mode_sweep`` from the same guesses, the 984-DOF cell
+  (nr=3, nphi=3, nz=40) at b = 1 from 426 Hz, and the sweep and per-b
+  ``mslp`` from one scalar guess of 280 Hz (ROADMAP.md Queue 3, F5).
 """
 import sys
 import time
@@ -120,6 +129,74 @@ def cmd_track():
     print("PADE2PT_4087 =", complex(r(0.5 * (taus[0] + taus[1]))))
 
 
+#: path H: per-b guesses (Hz) for b = 0…6, and the scalar guess of F5
+BLOCH_GUESSES = (337.0, 426.0, 593.0, 782.0, 980.0, 1184.0, 1393.0)
+BLOCH_SCALAR_GUESS = 280.0
+BLOCH_DSCRP = {"Interior": ("interior", ()),
+               "Outlet": ("admittance", ("Y", 1e15))}
+BLOCH_DOMS = [("Interior", "full"), ("Outlet", "full")]
+
+
+def bloch_families(nr, nphi, nz, full=True):
+    """(unit family with b, full family or None) on the 12-sector
+    annulus of path H."""
+    from wavesandeigenvalues_jl_tpu.mesh.annular import extend_mesh
+    from wavesandeigenvalues_jl_tpu.mesh.generate import annular_halfcell
+    half = annular_halfcell(DOS=12, nr=nr, nphi=nphi, nz=nz)
+    out = []
+    for unit in (True, False) if full else (True,):
+        m = extend_mesh(half, BLOCH_DOMS, unit=unit)
+        c = m.generate_field(lambda x, y, z: np.where(z < 0.2, 347.0, 850.0),
+                             order="const")
+        out.append(discretize(m, BLOCH_DSCRP, c, b="b" if unit else None))
+    return out[0], (out[1] if full else None)
+
+
+def cmd_bloch():
+    from wavesandeigenvalues_jl_tpu.nlevp import mslp
+    from wavesandeigenvalues_jl_tpu.nlevp.bloch_sweep import bloch_mode_sweep
+    kw = dict(tol=1e-11, scale=2 * np.pi, maxiter=30)
+    lu, Lf = bloch_families(4, 4, 48)
+    print(f"unit n={lu.size}, full n={Lf.size}")
+    om, flags = [], []
+    t0 = time.perf_counter()
+    for b, f0 in enumerate(BLOCH_GUESSES):
+        lu.params["b"] = float(b)
+        sol, n, flag = mslp(lu, f0, **kw)
+        om.append(complex(sol.params["ω"]))
+        flags.append(flag)
+        print(f"b={b}: {sol.params['ω'] / 2 / np.pi} Hz, {n} its, flag {flag}")
+    print(f"per-b mslp: {time.perf_counter() - t0:.1f} s")
+    print("BLOCH_1960_OMEGA =", tuple(om))
+    print("BLOCH_1960_FLAGS =", tuple(flags))
+    f1 = om[1].real / 2 / np.pi
+    t0 = time.perf_counter()
+    solf, n, flag = mslp(Lf, f1, **kw)
+    print(f"full from {f1!r} Hz: {n} its, flag {flag}, "
+          f"{time.perf_counter() - t0:.1f} s, |f_unit - f_full| "
+          f"{abs(om[1] - solf.params['ω']) / 2 / np.pi:.3e} Hz")
+    print("BLOCH_23520_OMEGA =", complex(solf.params["ω"]))
+    t0 = time.perf_counter()
+    sw = bloch_mode_sweep(lu, np.asarray(BLOCH_GUESSES), range(7), **kw)
+    print(f"sweep: {time.perf_counter() - t0:.1f} s, its "
+          f"{[n for _, n, _ in sw]}, flags {[f for _, _, f in sw]}")
+    print("BLOCH_SWEEP_OMEGA =", tuple(complex(s.params["ω"])
+                                       for s, _, _ in sw))
+    l984, _ = bloch_families(3, 3, 40, full=False)
+    l984.params["b"] = 1.0
+    sol, n, flag = mslp(l984, 426.0, **kw)
+    print(f"n={l984.size} b=1: {n} its, flag {flag}")
+    print("BLOCH_984_OMEGA =", complex(sol.params["ω"]))
+    # F5: one scalar guess for every b
+    sw = bloch_mode_sweep(lu, BLOCH_SCALAR_GUESS, range(7), **kw)
+    for b, (s, _, _) in enumerate(sw):
+        lu.params["b"] = float(b)
+        ref, _, flag = mslp(lu, BLOCH_SCALAR_GUESS, **kw)
+        fs, fm = s.params["ω"] / 2 / np.pi, ref.params["ω"] / 2 / np.pi
+        print(f"F5 b={b}: sweep {fs.real:.3f} Hz, mslp {fm.real:.3f} Hz "
+              f"(flag {flag}), gap {abs(fs - fm) / abs(fm):.3%}")
+
+
 if __name__ == "__main__":
     cmd = sys.argv[1]
     if cmd == "hierarchy":
@@ -130,5 +207,7 @@ if __name__ == "__main__":
         cmd_panel2(sys.argv[2])
     elif cmd == "track":
         cmd_track()
+    elif cmd == "bloch":
+        cmd_bloch()
     else:
         sys.exit(f"unknown command {cmd!r}")

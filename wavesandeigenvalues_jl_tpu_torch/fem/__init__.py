@@ -1,4 +1,7 @@
-from .assembly import aggregate_elements
+from .assembly import aggregate_elements, scatter_vector
+from .bloch import BlochContext
+from ..mesh.annular import bloch_expand
 from . import elements
 
-__all__ = ["aggregate_elements", "elements"]
+__all__ = ["aggregate_elements", "scatter_vector", "BlochContext",
+           "bloch_expand", "elements"]

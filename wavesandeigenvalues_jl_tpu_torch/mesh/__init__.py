@@ -1,7 +1,9 @@
-from .core import Mesh, find_simplices, unique_simplices
-from .generate import box_mesh, cylinder_points, rijke_mesh
+from .annular import bloch_expand, extend_mesh
+from .core import Mesh, SymInfo, find_simplices, unique_simplices
+from .generate import annular_halfcell, box_mesh, cylinder_points, rijke_mesh
 from .refine import compose_prolongations, octosplit, p1_prolongation
 
-__all__ = ["Mesh", "find_simplices", "unique_simplices", "box_mesh",
-           "cylinder_points", "rijke_mesh", "octosplit", "p1_prolongation",
+__all__ = ["Mesh", "SymInfo", "find_simplices", "unique_simplices",
+           "box_mesh", "cylinder_points", "rijke_mesh", "annular_halfcell",
+           "extend_mesh", "bloch_expand", "octosplit", "p1_prolongation",
            "compose_prolongations"]

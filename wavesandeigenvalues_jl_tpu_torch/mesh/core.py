@@ -1,20 +1,41 @@
 """Tetrahedral mesh core.
 
 Host numpy, copied from the JAX package's ``mesh/core.py`` (without the
-annular symmetry metadata and the domain colouring, see ROADMAP.md Queue 1).
-Counterpart of the reference's Meshutils module (Mesh type,
-src/Meshutils.jl:71-82) re-designed around *vectorized*
-canonical simplex indexing: where the reference maintains lexicographically
-ordered lists with O(log n) per-element binary-search insertion
-(src/Mesh/sorter.jl), simplices here live in flat [n, k] integer arrays with
-packed sort keys — dedup, lookup, edge enumeration and adjacency are single
-numpy array ops.
+domain colouring, see ROADMAP.md Queue 1).  Counterpart of the
+reference's Meshutils module (Mesh and SymInfo types,
+src/Meshutils.jl:28-82) re-designed around *vectorized* canonical simplex
+indexing: where the reference maintains lexicographically ordered lists
+with O(log n) per-element binary-search insertion (src/Mesh/sorter.jl),
+simplices here live in flat [n, k] integer arrays with packed sort keys —
+dedup, lookup, edge enumeration and adjacency are single numpy array ops.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import numpy as np
+
+
+@dataclass
+class SymInfo:
+    """Symmetry metadata of annular meshes (Meshutils.jl:28-44)."""
+
+    DOS: int
+    naxis: int
+    nxbloch: int
+    nbody: int
+    shiftbody: int
+    nxsymmetry: int
+    nxsector: int
+    naxis_ln: int = 0
+    nxbloch_ln: int = 0
+    nxsector_ln: int = 0
+    nxsector_tri: int = 0
+    nxsector_tet: int = 0
+    n: Optional[np.ndarray] = None
+    pnt: Optional[np.ndarray] = None
+    unit: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +119,7 @@ class Mesh:
         self.name = name
         self.file = file
         self.tri2tet: Optional[np.ndarray] = None
+        self.dos: Optional[SymInfo] = None
 
     # -- basic info ---------------------------------------------------------
     @property
@@ -291,4 +313,5 @@ class Mesh:
             return np.array([fn(*p) for p in pts.T], dtype=np.float64)
 
 
-__all__ = ["Mesh", "unique_simplices", "find_simplices", "simplex_keys"]
+__all__ = ["Mesh", "SymInfo", "unique_simplices", "find_simplices",
+           "simplex_keys"]

@@ -4,9 +4,10 @@ The reference ships meshes as gmsh files; for self-contained tests and
 examples this module generates equivalent tetrahedral meshes directly:
 a Kuhn-subdivided box and a Delaunay cylinder with the Rijke-tube domain
 layout (Inlet/Outlet/Walls surfaces, Cold/Flame/Hot volumes) matching the
-layout of the reference's Rijke_mm.msh.  Host numpy/scipy, copied from
-the JAX package's ``mesh/generate.py`` without the annular half-cell
-(ROADMAP.md Queue 1, Bloch and annular)."""
+layout of the reference's Rijke_mm.msh, and the half-cell of a DOS-fold
+annular duct that :func:`.annular.extend_mesh` turns into a Bloch unit
+cell or a full annulus.  Host numpy/scipy, copied from the JAX package's
+``mesh/generate.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -121,5 +122,64 @@ def rijke_mesh(radius=0.025, length=0.5, flame_halfwidth=0.001,
     return mesh
 
 
-__all__ = ["box_mesh", "rijke_mesh", "cylinder_points"]
+def annular_halfcell(DOS=8, r0=0.2, r1=0.3, lz=0.5, nr=2, nphi=2, nz=6,
+                     with_axis=False) -> Mesh:
+    """Half-cell of a DOS-fold annular duct: sector θ ∈ [0, π/DOS],
+    r ∈ [r0, r1] (or [0, r1] with ``with_axis=True``), z ∈ [0, lz].
+    Domains: Bloch (θ=0), Symmetry (θ=π/DOS), Interior, Inlet (z=0),
+    Outlet (z=lz), Walls — the input layout of
+    :func:`.annular.extend_mesh`."""
+    phi_max = np.pi / DOS
+    rs = np.linspace(0.0 if with_axis else r0, r1, nr + 1)
+    phis = np.linspace(0.0, phi_max, nphi + 1)
+    zs = np.linspace(0.0, lz, nz + 1)
+    pts = []
+    index = {}
+    for k, z in enumerate(zs):
+        for i, r in enumerate(rs):
+            for j, phi in enumerate(phis):
+                if with_axis and r == 0.0 and j > 0:
+                    index[(i, j, k)] = index[(i, 0, k)]
+                    continue
+                index[(i, j, k)] = len(pts)
+                pts.append((r * np.cos(phi), r * np.sin(phi), z))
+    points = np.asarray(pts).T
+    tets = []
+    for k in range(nz):
+        for i in range(nr):
+            for j in range(nphi):
+                corner = [index[(i + a, j + b, k + c)]
+                          for a in (0, 1) for b in (0, 1) for c in (0, 1)]
+                for t in _KUHN:
+                    tet = [corner[v] for v in t]
+                    if len(set(tet)) == 4:
+                        tets.append(tet)
+    tets = np.asarray(tets, np.int64)
+    mesh = Mesh(points, tetrahedra=tets, name="annular_halfcell")
+    vols = mesh.tet_volumes()
+    mesh.tetrahedra = tets = tets[vols > 1e-14]
+    surface, interior = mesh.surface_and_interior_triangles()
+    mesh.triangles = surface
+    mesh.int_triangles = interior
+    mid = points[:, surface].mean(axis=2)
+    phi_mid = np.arctan2(mid[1], mid[0])
+    eps = 1e-9
+    bloch = np.nonzero(np.abs(phi_mid) < eps)[0]
+    symm = np.nonzero(np.abs(phi_mid - phi_max) < eps)[0]
+    inlet = np.nonzero(np.abs(mid[2]) < eps)[0]
+    outlet = np.nonzero(np.abs(mid[2] - lz) < eps)[0]
+    rest = np.setdiff1d(np.arange(len(surface)),
+                        np.concatenate([bloch, symm, inlet, outlet]))
+    mesh.domains = {
+        "Interior": {"dimension": 3, "simplices": np.arange(len(tets))},
+        "Bloch": {"dimension": 2, "simplices": bloch},
+        "Symmetry": {"dimension": 2, "simplices": symm},
+        "Inlet": {"dimension": 2, "simplices": inlet},
+        "Outlet": {"dimension": 2, "simplices": outlet},
+        "Walls": {"dimension": 2, "simplices": rest},
+    }
+    return mesh
+
+
+__all__ = ["box_mesh", "rijke_mesh", "cylinder_points", "annular_halfcell"]
 

@@ -13,8 +13,10 @@ dscrp maps a domain name to (kind, data) with the ported kinds
   :admittance  (sym, val)     boundary damping ωY·C
   :flame       (γ, ρ, Q02U0, [ref_idx,] x_ref, n_ref, :n, :τ, n, τ)  n-τ flame
 
-The other kinds, P2/Hermite elements, Bloch periodicity and the forcing
-vector are ROADMAP.md Queue 1 work and raise ``NotImplementedError``.
+on P1 (``order="lin"``) or P2 (``order="quad"``) Lagrange elements, and
+with ``b=`` the Bloch-reduced family of an annular unit cell
+(:mod:`..fem.bloch`).  The other kinds, Hermite elements and the forcing
+vector are ROADMAP.md Queue 1 item 7 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 
 from ..fem import assembly as fea
 from ..fem import elements as fel
+from ..fem.bloch import BlochContext
 from ..mesh.core import Mesh
 from ..nlevp.algebra import exp_delay, pow1, pow2
 from ..nlevp.family import AUX_OPERATOR, OperatorFamily, Term
@@ -52,30 +55,46 @@ def discretize(mesh: Mesh, dscrp: Dict, C, order: str = "lin",
     """Assemble the Helmholtz operator family (Helmholtz.jl:54-581);
     timed under the ``helmholtz.discretize`` phase (utils/timing.py)."""
     from ..utils.timing import phase
-    if b is not None or source:
+    if source:
         raise NotImplementedError(
-            "Bloch assembly and the forcing vector are not ported yet "
-            "(ROADMAP.md Queue 1: Bloch and annular; remaining front-ends)")
+            "the forcing vector is not ported yet (ROADMAP.md Queue 1 "
+            "item 7: remaining front-ends)")
     with phase("helmholtz.discretize"):
-        return _discretize_impl(mesh, dscrp, C, order, mass_weighting)
+        return _discretize_impl(mesh, dscrp, C, order, b, mass_weighting)
 
 
 def _discretize_impl(mesh: Mesh, dscrp: Dict, C, order: str,
-                     mass_weighting: bool):
-    porder = {"lin": 1}.get(order)
+                     b: Optional[str], mass_weighting: bool):
+    """Assembly body (Helmholtz.jl:54-581).  ``b`` activates
+    Bloch-periodic assembly on a unit-cell mesh (requires mesh.dos; see
+    :mod:`..fem.bloch`)."""
+    porder = {"lin": 1, "quad": 2}.get(order)
     if porder is None:
         raise NotImplementedError(
             f"element order {order!r} is not ported yet (ROADMAP.md "
-            "Queue 1; the port assembles P1 only)")
+            "Queue 1 item 7; the port assembles 'lin' and 'quad')")
     tri_dofs, tet_dofs, dim = fea.aggregate_elements(mesh, order)
     pts = mesh.points
     C_tet, C_tri = _speed_of_sound(mesh, C)
 
     L = OperatorFamily(["ω", "λ"], [0.0, complex("inf")])
 
+    bloch = None
+    if b is not None:
+        bloch = BlochContext(mesh, order, b)
+        dim = bloch.reduced_dim(dim)
+        L.params[b] = 0.0
+
     def push_matrix(rows, cols, vals, funcs, args, txt, mat):
-        M = CSR.from_coo(rows, cols, vals, (dim, dim))
-        L.push(Term(M, tuple(funcs), tuple(args), txt, mat))
+        if bloch is None:
+            M = CSR.from_coo(rows, cols, vals, (dim, dim))
+            L.push(Term(M, tuple(funcs), tuple(args), txt, mat))
+            return
+        for (r, c, v), f, a, t in bloch.blochify(rows, cols, vals):
+            M = CSR.from_coo(r, c, v, (dim, dim))
+            if M.nnz or not f:
+                L.push(Term(M, tuple(funcs) + f, tuple(args) + a, txt + t,
+                            mat))
 
     for domain, (kind, data) in dscrp.items():
         dd = mesh.domains[domain]
@@ -144,11 +163,18 @@ def _discretize_impl(mesh: Mesh, dscrp: Dict, C, order: str,
                 push_matrix(rows, cols, vals, flame_funcs, flame_args,
                             flame_txt, "Q")
 
-    # mass weighting / aux term (Helmholtz.jl:528-574)
-    if mass_weighting:
+    # mass weighting / aux term (Helmholtz.jl:528-574); forced on for Bloch
+    if mass_weighting or bloch is not None:
         E = fel.tet_mass(pts, mesh.tetrahedra, porder)
         rows, cols, vals = fea.scatter_matrix_coo(tet_dofs, E)
+        if bloch is not None:
+            rows, cols, vals = (np.concatenate(x) for x in zip(
+                *bloch.blochify_weight(rows, cols, vals)))
         M = CSR.from_coo(rows, cols, -vals, (dim, dim))
+        if bloch is not None:
+            D = bloch.axis_penalty(M, dim)
+            if D is not None:
+                L.push(D)
         L.push(Term(M, (pow1,), (("λ",),), "-λ", AUX_OPERATOR))
     return L
 

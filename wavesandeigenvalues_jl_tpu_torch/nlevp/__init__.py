@@ -3,8 +3,11 @@ operator families, the coefficient algebra, the npz loader, the local
 solvers (the fused device engines and the general engine with
 arbitrary-order perturbation theory and Padé updates), Beyn's contour
 solver and the hybrid ``solve``, the parameter studies (branch
-continuation, multipoint Padé), and a gallery of benchmark problems."""
-from .algebra import ExpDelay, Pow, ScalarFunc, exp_delay, pow1, pow2, pow_a
+continuation, multipoint Padé), the batched Bloch wavenumber sweep, and a
+gallery of benchmark problems."""
+from .algebra import (ExpAz, ExpDelay, OneMinus, Pow, Product, ScalarFunc,
+                      SumYExpIKX, exp_delay, generate_sum_y_exp_ikx, pow1,
+                      pow2, pow_a)
 from .family import AUX_OPERATOR, OperatorFamily, Solution, Term
 from .pade import (MultipointPade, Polynomial, RationalPolynomial,
                    conv_radius, estimate_pol, multipoint_pade,
@@ -21,6 +24,7 @@ from .solvers import (beyn, compute_moment_matrices, count_poles_and_zeros,
                       rf2s, row_equilibrated_residual, solve, traceiter,
                       verify_eigenpairs, wn)
 from .continuation import track_branch
+from .bloch_sweep import bloch_mode_sweep
 from . import gallery
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -2,10 +2,11 @@
 
 Copied from the JAX package's ``nlevp/algebra.py``, restricted to the
 functions the ported ``discretize`` front-end and the gallery use: the
-monomials ``pow1/pow2/pow_a`` and the time delay ``exp(-iωτ)`` of the
-n–τ flame.  The
-other coefficient functions (state-space admittances, fancy flame, Bloch
-filters, combinators) are ROADMAP.md Queue 1 work.
+monomials ``pow1/pow2/pow_a``, the time delay ``exp(-iωτ)`` of the n–τ
+flame, and the Bloch factors ``exp(az)``, the discrete wavenumber filter
+``Σ y_k exp(2πikz/N)``, the product ``g(z)h(z)`` and ``1-g(z)``.  The
+other coefficient functions (state-space admittances, fancy flame, the
+other combinators) are ROADMAP.md Queue 1 work.
 
 An :class:`ScalarFunc` represents a scalar function ``f(z_1, ..., z_p)`` of
 one or more (complex) parameters together with *all* its mixed partial
@@ -115,6 +116,26 @@ def pow_a(a) -> Pow:
     return Pow(a)
 
 
+class ExpAz(ScalarFunc):
+    """exp(a·z); k-th derivative a^k exp(az) (algebra.jl:110-135)."""
+
+    nargs = 1
+
+    def __init__(self, a: complex):
+        self.a = complex(a)
+
+    def eval(self, values, orders):
+        (z,) = values
+        (k,) = orders
+        return self.a ** k * _exp(self.a * z)
+
+    def symbol(self, names):
+        return f"exp({self.a}*{names[0]})"
+
+    def signature(self):
+        return ("ExpAz", self.a)
+
+
 class ExpDelay(ScalarFunc):
     """exp(-iωτ) with mixed derivatives ∂^m_ω ∂^n_τ (algebra.jl:138-150).
 
@@ -145,5 +166,83 @@ class ExpDelay(ScalarFunc):
 exp_delay = ExpDelay()
 
 
-__all__ = ["ScalarFunc", "Pow", "pow1", "pow2", "pow_a", "ExpDelay",
-           "exp_delay"]
+class SumYExpIKX(ScalarFunc):
+    """Σ_k y_k exp(2πi k z / N) — the discrete Bloch wavenumber filter
+    (algebra.jl:276-288).  n-th derivative multiplies each mode by
+    (2πik/N)^n."""
+
+    nargs = 1
+
+    def __init__(self, y):
+        self.y = np.asarray(y, dtype=np.complex128)
+        self.N = len(self.y)
+
+    def eval(self, values, orders):
+        (z,) = values
+        (n,) = orders
+        f = 0.0
+        for k, yk in enumerate(self.y):
+            f = f + k ** n * yk * _exp(2j * np.pi * k / self.N * z)
+        return f * (2j * np.pi / self.N) ** n
+
+    def symbol(self, names):
+        return f"δ({names[0]})"
+
+    def signature(self):
+        return ("SumYExpIKX", self.y.tobytes())
+
+
+def generate_sum_y_exp_ikx(y) -> SumYExpIKX:
+    return SumYExpIKX(y)
+
+
+class Product(ScalarFunc):
+    """g(z)·h(z) via Leibniz (algebra.jl:290-299)."""
+
+    nargs = 1
+
+    def __init__(self, g, h):
+        self.g = g
+        self.h = h
+
+    def eval(self, values, orders):
+        (z,) = values
+        (k,) = orders
+        f = 0.0
+        for i in range(k + 1):
+            f = f + (math.comb(k, i) * self.h.eval((z,), (k - i,))
+                     * self.g.eval((z,), (i,)))
+        return f
+
+    def symbol(self, names):
+        return self.g.symbol(names) + "*" + self.h.symbol(names)
+
+    def signature(self):
+        return ("Product", self.g.signature(), self.h.signature())
+
+
+class OneMinus(ScalarFunc):
+    """1 - g(z) (algebra.jl:301-310)."""
+
+    nargs = 1
+
+    def __init__(self, g):
+        self.g = g
+
+    def eval(self, values, orders):
+        (z,) = values
+        (k,) = orders
+        if k == 0:
+            return 1.0 - self.g.eval((z,), (0,))
+        return -self.g.eval((z,), (k,))
+
+    def symbol(self, names):
+        return f"(1-{self.g.symbol(names)})"
+
+    def signature(self):
+        return ("OneMinus", self.g.signature())
+
+
+__all__ = ["ScalarFunc", "Pow", "pow1", "pow2", "pow_a", "ExpAz", "ExpDelay",
+           "exp_delay", "SumYExpIKX", "generate_sum_y_exp_ikx", "Product",
+           "OneMinus"]

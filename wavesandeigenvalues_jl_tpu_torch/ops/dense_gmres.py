@@ -50,7 +50,8 @@ def dense_gmres_ref(P: torch.Tensor, b: torch.Tensor, m: int,
                     cycles: int) -> torch.Tensor:
     """Plain PyTorch GMRES(m), ``cycles`` restarts from x0 = 0, exactly m
     Arnoldi steps each (same contract as the kernel): P [S, N, N], b [S, N]
-    complex64 -> x [S, N]."""
+    complex64 -> x [S, N].  complex128 inputs run it in double precision
+    (the yardstick of the kernel on inputs where float32 loses digits)."""
     S, N = b.shape
     dev = b.device
     x = torch.zeros_like(b)
@@ -62,7 +63,7 @@ def dense_gmres_ref(P: torch.Tensor, b: torch.Tensor, m: int,
         V[:, 0] = r / beta[:, None]
         g = b.new_zeros(S, m + 1)
         g[:, 0] = beta
-        cs = torch.zeros(S, m + 1, dtype=torch.float32, device=dev)
+        cs = torch.zeros(S, m + 1, dtype=b.real.dtype, device=dev)
         sn = b.new_zeros(S, m + 1)
         for j in range(m):
             w = (P @ V[:, j].unsqueeze(-1)).squeeze(-1)
