@@ -47,7 +47,19 @@ their real size, each with the launch counters set to 0 just before it:
   ``bloch_mode_sweep`` over b = 0…6 (plain PyTorch); H5: b = 1 on a
   984-DOF cell through the dense engine and K2 at N = 1,024.  Each
   against pinned JAX host values; K3 and K2 are held against their plain
-  versions on the first and the last (K2: the first) of their own inputs.
+  versions on the first and the last (K2: the first) of their own inputs;
+* path I, every front-end: I1 the 7,259-DOF active Rijke with the scalar
+  and the two-branch ``fancyflame`` and tutorial 08's custom FTF, through
+  the slab engine and K3; I2 the active Rijke with cubic Hermite elements
+  (19,674 DOF) through the slab engine and K3 at (2, 20, 1280), and the
+  point getters on its mode; I3 tutorial 11's APE duct (12,532 DOF) with
+  its Hermite potential flow, through the slab engine and K3 at (2, 24,
+  640); I4 tutorial 12's networks through the dense engine and K2 at N =
+  128, and the duct through Beyn's dense backend; I5 the 1,369-DOF shape
+  sensitivities (``householder(order=2)`` and the finite-difference
+  re-solves through ``DeviceLU``, the discrete adjoint on the host).
+  Each against pinned JAX host values; K3 and K2 held against their plain
+  versions on the parts' own inputs as in path H.
 
 Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
@@ -90,9 +102,10 @@ COND_FACTOR = 2
 #: some only
 REPEATS = 50
 #: (sides, m, s) of the 7,259-DOF slice, of the 437-DOF test family, a
-#: wider s with a short m, and path H's full annulus (on random inputs,
-#: where float32 loses no digits)
-K3_SHAPES = [(2, 60, 256), (2, 13, 128), (2, 5, 384), (2, 45, 768)]
+#: wider s with a short m, path H's full annulus, and path I's Hermite
+#: Rijke and APE duct (on random inputs, where float32 loses no digits)
+K3_SHAPES = [(2, 60, 256), (2, 13, 128), (2, 5, 384), (2, 45, 768),
+             (2, 20, 1280), (2, 24, 640)]
 #: K2 against its plain version on the JAX test problem (float32 sums in
 #: another order) and that test's residual bar (test_pallas_gmres.py:49)
 K2_RTOL, K2_RES = 1e-5, 5e-6
@@ -219,6 +232,90 @@ BLOCH_KW = dict(tol=1e-11, scale=2 * np.pi, maxiter=30)
 #: |f_unit − f_full| (Hz), and the full operator's residual of the expanded
 #: eigenvector: the bars of tests/test_bloch.py:66,96
 BLOCH_UNIT_FULL_HZ, BLOCH_RES = 1e-8, 1e-12
+#: path I: JAX host values on the CPU, computed by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py frontends
+#: I1: the 7,259-DOF active Rijke (rijke_mesh(4, 58, 58)) with its flame
+#: replaced by the scalar fancyflame (n 1, τ 1e-3, a −1e-8), tutorial 08's
+#: custom n–τ FTF (against OMEGA_7259, the built-in flame's) and the
+#: two-branch fancyflame FANCY_LIST, mslp from Z0 at I1_KW
+FANCY_LIST = (["n1", "n2"], ["τ1", "τ2"], ["a1", "a2"], [0.7, 0.3],
+              [1e-3, 1.5e-3], [-1e-8, -2e-8])
+I1_KW = dict(maxiter=30, tol=1e-10)
+OMEGA_7259_FANCY = 1089.0759764935967 + 380.102109046612j
+OMEGA_7259_FANCY_LIST = 1051.1707281219417 + 443.2655856132017j
+#: I2: the active Rijke on rijke_mesh(3, 17, 17) with cubic Hermite
+#: elements (19,674 DOF), mslp from Z0 at I2_KW (JAX host reaches flag 0
+#: there in 6 steps); p and n·∇p at the flame's reference point over p at
+#: X_NORM, of the eigenvector (getters get_p / get_n_grad_p)
+I2_KW = dict(maxiter=30, tol=1e-8)
+X_NORM = [0.01, 0.0, -0.2]
+OMEGA_HERM_19674 = 1079.6694682771572 + 375.26951590767567j
+HERM_19674_POINT = (0.7688893915642817 - 0.17335253741897477j,
+                    -1.9886722407679345 - 1.3876364351346282j)
+POINT_RTOL = 1e-6
+#: I3: tutorial 11's APE duct on box_mesh(0.25, 0.25, 1.0, 4, 4, 24), q =
+#: 0.05 m³/s through Zmin/Zmax, the Hermite potential flow (order "lin"),
+#: mslp from 1.05·iπc at I3_KW; the eigenvalue symbol is s
+APE_Q = 0.05
+I3_KW = dict(maxiter=30, tol=1e-9)
+S_APE = 4.873983706890269e-11 + 1069.1587105522558j
+#: I4: tutorial 12's networks (c 347 m/s, A 0.01 m²): the closed–open duct
+#: (mslp from 2π·80 Hz; Beyn over NET_GAMMA, l=6, K=2, N=64, res_tol
+#: 1e-6), the Rijke network at n = 0 (from 2π·150 Hz) and n = 0.3 (from the
+#: n = 0 mode), and the Helmholtz-damper network (from 2π·90 Hz)
+NET_C, NET_A = 347.0, 0.01
+NET_GAMMA = 2 * np.pi * np.array([20 + 20j, 20 - 20j, 500 - 20j, 500 + 20j])
+NET_DUCT = 545.0663253978291 - 3.170608645964694e-14j
+NET_DUCT_BEYN = (2725.3316269892857 + 1.5137521743115685e-10j,
+                 1635.1989761934328 + 8.252813607439369e-11j,
+                 545.0663253972237 - 1.650464687717564e-10j)
+NET_RIJKE_N0 = 854.2858356344977 + 8.885083621635902e-14j
+NET_RIJKE_N03 = 746.8076327231503 + 72.90219377743024j
+NET_DAMPER = 541.7820586624792 + 0.001099080835227043j
+#: the duct's first mode against c/4L
+NET_F1_RTOL = 1e-6
+#: I5: the 1,369-DOF active Rijke (rijke_mesh(3, 17, 17)),
+#: householder(Z0, maxiter=20, tol=1e-11, order=2), the discrete-adjoint
+#: sensitivity over every surface point (h 1e-8): its largest entry, the sum
+#: of its z-components over the Outlet's points, and its entries (x, y, z)
+#: at the six points linspace(0, n_surface − 1, 6) of the surface points;
+#: the finite differences (h 1e-6) at those points, where the JAX package
+#: returns (None where it raises IndexError, ROADMAP.md Queue 3 F6)
+OMEGA_1369_H2 = 1075.8988207005825 + 376.3799204921499j
+SENS_MAX = -44770.86668832157 + 18488.532292261614j
+SENS_OUTLET_Z = -1571.9660576008487 - 1038.4961462185152j
+SENS_PICKED = (
+    (1.7010061650564456e-05 - 3.7511005549654974e-05j,
+     3.501129513724943e-05 + 1.9684880702530716e-05j,
+     53.362485901638735 + 58.06901670492694j),
+    (30.30197621547137 + 23.866375562630232j,
+     52.48512287938182 + 41.33925424775005j,
+     -0.00010150196777658493 + 0.006485939831065934j),
+    (77.93677556486217 - 26.937212792455707j,
+     -0.3439732274180002 - 0.13030471803701632j,
+     -0.1905743428714004 - 0.03386629016620191j),
+    (48.08925876883153 + 19.73102514418711j,
+     -56.611927975516416 - 19.651114452891477j,
+     0.05126153859208671 + 0.007198873693937458j),
+    (76.63904632274425 + 46.51004202325207j,
+     64.41855633476621 + 39.35501820254267j,
+     -1.5759365410872306e-05 + 4.536974685720452e-05j),
+    (47.04640703761708 + 31.067682460163212j,
+     -20.32337166078758 - 13.420611068632068j,
+     -29.454087369911047 - 19.45933363252556j))
+FD_PICKED = (None, None,
+             (77.9355228814893 - 26.939698528849476j,
+              -0.34397760373394703 - 0.13032220635977865j,
+              -0.20967172531527467 - 0.07282153546839254j),
+             None, None, None)
+#: the DA values against JAX's: the largest entry and the outlet sum each
+#: relative to itself; the six picked entries relative to the largest of
+#: them, at a bar above the DA's own round-off resolution (its central
+#: difference of the operator at h = 1e-8 moves the picked entries by
+#: 1.3e-6 to 1.7e-6 of the largest when h is 2e-8 or 5e-9, JAX host,
+#: tools/jax_references.py frontends shape); DA against FD: the bar of
+#: tests/test_shape.py:50
+SENS_RTOL, PICKED_RTOL, DA_FD_RTOL = 1e-6, 1e-5, 5e-3
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -1482,8 +1579,8 @@ def _bloch_family(nr, nphi, nz, unit):
     return mesh, L
 
 
-def _fused_mslp(L, f0, label, solver_cls):
-    """mslp(L, f0) on the card at BLOCH_KW with the fused engine's
+def _fused_mslp(L, f0, label, solver_cls, kw=BLOCH_KW):
+    """mslp(L, f0) on the card at ``kw`` with the fused engine's
     hand-over turned into an error: every iteration must be one of its
     device or polish steps and no phase of the general engine may run.
     Returns (solution, iterations, flag, device steps, polish steps)."""
@@ -1495,7 +1592,7 @@ def _fused_mslp(L, f0, label, solver_cls):
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message="fused device step",
                                 category=RuntimeWarning)
-        sol, n_it, flag = mslp(L, f0, **BLOCH_KW)
+        sol, n_it, flag = mslp(L, f0, **kw)
     rep = timing.report()
     steps = rep.get("fused_local.device_step", {"calls": 0})["calls"]
     polish = rep.get("fused_local.polish_step", {"calls": 0})["calls"]
@@ -1739,6 +1836,381 @@ def phase_bloch_path(card):
     return out
 
 
+def _flame(kind, *tail):
+    """The active Rijke's Flame descriptor of ``kind`` with the data
+    ``tail`` after (γ, ρ, Q02U0, x_ref, n_ref)."""
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import (GAMMA, Q02U0,
+                                                               RHO)
+    return (kind, (GAMMA, RHO, Q02U0, [0.0, 0.0, -0.0101], [0.0, 0.0, 1.0])
+            + tail)
+
+
+def _ntau_ftf(n, tau):
+    """Tutorial 08's custom FTF: the n–τ flame as a ScalarFunc."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.algebra import (ScalarFunc,
+                                                                exp_delay)
+
+    class NTauFTF(ScalarFunc):
+        nargs = 1
+
+        def eval(self, values, orders):
+            (z,), (k,) = values, orders
+            return n * exp_delay.eval((z, tau), (k, 0))
+
+        def symbol(self, names):
+            return f"FTF({names[0]})"
+
+    return NTauFTF()
+
+
+def _driven(module, name, fn, last=True):
+    """fn() with the counters set to 0 just before it and read just after,
+    the wrapper ``module.name`` keeping its first (and last) inputs.
+    Returns (fn's result, wall s, counts, kept inputs, peak MiB)."""
+    with _kept_inputs(module, name, last) as kept:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    return out, wall, counts, kept, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _check_launched(label, counts, kernel):
+    check(counts[kernel][0] > 0, f"{label} never launched {kernel}")
+    check(all(t == 0 for _, t in counts.values()),
+          f"{label} ran a plain kernel version: {counts}")
+
+
+def _k3_pair(label, kept, shape):
+    """K3 against its plain version (complex128-held, as path H2) on the
+    first and the last of a part's own inputs; the worse record."""
+    check(len(kept) == 2 and tuple(kept[0][1].shape) == shape,
+          f"{label} K3 inputs {[tuple(k[1].shape) for k in kept]}, "
+          f"expected {shape}")
+    return max((_compare_k3(st, b, f"{label} {w} launch", exact=True)
+                for w, (st, b) in zip(("first", "last"), kept)),
+               key=lambda r: r["max_abs_err"])
+
+
+def _phases():
+    """The fused engine's phases of the last mslp (seconds)."""
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+    rep = timing.report()
+    return ", ".join(
+        f"{k.split('.')[-1]} {rep.get(k, {'total_s': 0.0})['total_s']:.3f} s"
+        for k in ("fused_local.setup", "fused_local.device_step",
+                  "fused_local.polish_step"))
+
+
+def _slab_line(label, card, L, res, wall, counts, peak, extra):
+    """Print one slab-engine mslp line of path I and check flag 0."""
+    sol, n_it, flag, st, po = res
+    solver = L._fused_solver[1]
+    print(f"main path {label} on {card}: n={L.size} nnz={L._stack().nnz} "
+          f"{type(solver).__name__}, slab partition m={solver.part.m} "
+          f"smax={solver.part.smax}, K3 at (2, {solver.m}, {solver.s}), "
+          f"stream {2 * 2 * solver.m * solver.s ** 2 * 8 / 1e9:.3f} GB | "
+          f"wall {wall:.3f} s ({st} fused device steps, {po} polish steps) "
+          f"| iterations {n_it} flag {flag} | {extra} | peak device memory "
+          f"{peak:.1f} MiB | launches, plain calls {counts}", flush=True)
+    check(flag == 0, f"{label} flag {flag}")
+
+
+def phase_frontends_path(card):
+    """Path I: every front-end on the card, each part driven with the
+    counters set to 0 just before it and read just after.  I1: the new
+    coefficient functions (scalar and list fancyflame, tutorial 08's custom
+    FTF) on the 7,259-DOF active Rijke through the slab engine and K3; I2:
+    the Hermite active Rijke (19,674 DOF) through the slab engine and K3,
+    and the point getters on its eigenvector; I3: the APE duct (12,532
+    DOF) with its Hermite potential flow, through the slab engine and K3;
+    I4: tutorial 12's networks through the dense engine and K2, and Beyn's
+    dense backend; I5: the 1,369-DOF shape sensitivities (householder
+    order 2 and the finite-difference re-solves through DeviceLU).  Each
+    against pinned JAX host values; K3 against its plain version on the
+    first and the last of I1's, I2's and I3's own inputs, K2 on I4's
+    first.  Returns {part: (counts, record)}."""
+    from wavesandeigenvalues_jl_tpu_torch.fem import get_n_grad_p, get_p
+    from wavesandeigenvalues_jl_tpu_torch.mesh import box_mesh, rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.models import (
+        ape, compute_potflow_field, discretize, discretize_network)
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import (beyn, fused_local,
+                                                        fused_slab)
+    Slab = fused_slab.FusedSlabPencilSolver
+    out = {}
+
+    # I1: the new coefficient functions at the slab path's width
+    mesh = rijke_mesh(n_rings=4, nz_cold=58, nz_hot=58)
+    dscrp, c = active_rijke_setup(mesh)
+    t0 = time.perf_counter()
+    fams = [(name, discretize(mesh, dict(dscrp, Flame=flame), c), ref)
+            for name, flame, ref in (
+                ("fancyflame", _flame("fancyflame", "n", "τ", "a", 1.0,
+                                      1e-3, -1e-8), OMEGA_7259_FANCY),
+                ("custom FTF", _flame("flame", _ntau_ftf(1.0, 1e-3)),
+                 OMEGA_7259),
+                ("fancyflame list", _flame("fancyflame", *FANCY_LIST),
+                 OMEGA_7259_FANCY_LIST))]
+    build = time.perf_counter() - t0
+    res, wall, counts, kept, peak = _driven(
+        fused_slab, "slab_thomas",
+        lambda: [_fused_mslp(L, Z0, f"I1 {name}", Slab, I1_KW)
+                 for name, L, _ in fams])
+    for (name, L, ref), r in zip(fams, res):
+        rel = _rel(r[0].params["ω"], ref)
+        check(L.size == 7259, f"I1 {name} n={L.size}")
+        _slab_line(f"I1 ({name}, mslp)", card, L, r, wall, counts,
+                   peak, f"omega {r[0].params['ω']!r} rel err {rel:.3e} (tol "
+                   f"{OMEGA_RTOL:.0e}) | three families' discretize "
+                   f"{build:.2f} s, their mslp walls together")
+        check(rel <= OMEGA_RTOL, f"I1 {name} omega off by {rel:.3e}")
+    _check_launched("I1", counts, "slab_thomas")
+    out["I1"] = (counts, _k3_pair("path I1", kept, (2, 60, 256)))
+    del fams, kept, res
+
+    # I2: Hermite elements and the point getters
+    mesh = rijke_mesh(n_rings=3, nz_cold=17, nz_hot=17)
+    t0 = time.perf_counter()
+    L = discretize(mesh, *active_rijke_setup(mesh), order="herm")
+    build = time.perf_counter() - t0
+    check(L.size == 19674, f"I2 n={L.size}")
+    r, wall, counts, kept, peak = _driven(
+        fused_slab, "slab_thomas",
+        lambda: _fused_mslp(L, Z0, "I2", Slab, I2_KW))
+    sol = r[0]
+    rel = _rel(sol.params["ω"], OMEGA_HERM_19674)
+    x_ref, n_ref = [0.0, 0.0, -0.0101], [0.0, 0.0, 1.0]
+    t0 = time.perf_counter()
+    pn = get_p(mesh, sol.v, X_NORM)
+    pts = (get_p(mesh, sol.v, x_ref) / pn,
+           get_n_grad_p(mesh, sol.v, x_ref, n_ref) / pn)
+    prel = [_rel(a, b) for a, b in zip(pts, HERM_19674_POINT)]
+    solver = L._fused_solver[1]
+    _slab_line("I2 (Hermite active Rijke, mslp)", card, L, r, wall,
+               counts, peak, f"{_phases()} | discretize {build:.2f} s | "
+               f"omega {sol.params['ω']!r} rel err {rel:.3e} (tol "
+               f"{OMEGA_RTOL:.0e}) | p(x_ref)/p(x_norm) {complex(pts[0])!r}, "
+               f"n.grad p(x_ref)/p(x_norm) {complex(pts[1])!r}: rel err "
+               f"{prel[0]:.3e} {prel[1]:.3e} (tol {POINT_RTOL:.0e}), getters "
+               f"{time.perf_counter() - t0:.3f} s")
+    check(rel <= OMEGA_RTOL, f"I2 omega off by {rel:.3e}")
+    check(max(prel) <= POINT_RTOL, f"I2 point values off by {max(prel):.3e}")
+    check((solver.part.m, solver.s) == (20, 1280),
+          f"I2 slab partition m={solver.part.m} s={solver.s}, JAX's 20, "
+          "1280")
+    _check_launched("I2", counts, "slab_thomas")
+    out["I2"] = (counts, _k3_pair("path I2", kept, (2, 20, 1280)))
+    del L, kept, sol, r
+
+    # I3: APE with the Hermite potential flow
+    mesh = box_mesh(lx=0.25, ly=0.25, lz=1.0, nx=4, ny=4, nz=24)
+    mesh.collect_lines()
+    bc = {"Zmin": APE_Q, "Zmax": -APE_Q}
+    t0 = time.perf_counter()
+    U = compute_potflow_field(mesh, bc, order="lin")
+    t_flow = time.perf_counter() - t0
+    L = ape.discretize(mesh, bc, U=U)
+    build = time.perf_counter() - t0
+    check(L.size == 12532, f"I3 n={L.size}")
+    cbar = np.sqrt(ape.AMBIENT_GAMMA * ape.AMBIENT_P / ape.AMBIENT_RHO)
+    r, wall, counts, kept, peak = _driven(
+        fused_slab, "slab_thomas",
+        lambda: _fused_mslp(L, 1j * np.pi * cbar * 1.05, "I3", Slab, I3_KW))
+    rel = _rel(r[0].params["s"], S_APE)
+    solver = L._fused_solver[1]
+    _slab_line("I3 (APE duct with mean flow, mslp)", card, L, r, wall,
+               counts, peak, f"{_phases()} | potential flow (Hermite, host "
+               f"SuperLU) {t_flow:.2f} s, U_z {U[2].mean():.6f} +- "
+               f"{U[2].std():.2e} m/s, + discretize {build:.2f} s | s {r[0].params['s']!r} rel "
+               f"err {rel:.3e} (tol {OMEGA_RTOL:.0e})")
+    check(rel <= OMEGA_RTOL, f"I3 s off by {rel:.3e}")
+    check((solver.part.m, solver.s) == (24, 640),
+          f"I3 slab partition m={solver.part.m} s={solver.s}, JAX's 24, 640")
+    _check_launched("I3", counts, "slab_thomas")
+    out["I3"] = (counts, _k3_pair("path I3", kept, (2, 24, 640)))
+    del L, kept, r
+
+    # I4: the networks through the dense engine and K2, and Beyn
+    C, A = NET_C, NET_A
+    nets = {
+        "duct": [("unode", (C, A)), ("duct", (1.0, C, A)), ("pnode", (C, A))],
+        "rijke": [("unode", (C, A)), ("duct", (0.5, C, A)),
+                  ("flame", (C, 2 * C, A)), ("duct", (0.5, 2 * C, A)),
+                  ("pnode", (2 * C, A))],
+        "damper": [("unode", (C, A)), ("duct", (0.5, C, A)),
+                   ("helmholtz", (1e-4, 0.02, 0.005, C, A)),
+                   ("duct", (0.5, C, A)), ("pnode", (C, A))]}
+    Ls = {k: discretize_network(v) for k, v in nets.items()}
+    Ls["rijke"].params.update({"n": 0.0, "τ": 1e-3})
+    Dense = fused_local.FusedPencilSolver
+
+    def networks():
+        sols = {"duct": _fused_mslp(Ls["duct"], 2 * np.pi * 80.0, "I4 duct",
+                                    Dense, dict(maxiter=30, tol=1e-10))}
+        sols["rijke n=0"] = _fused_mslp(Ls["rijke"], 2 * np.pi * 150.0,
+                                        "I4 rijke n=0", Dense,
+                                        dict(maxiter=40, tol=1e-10))
+        Ls["rijke"].params["n"] = 0.3
+        sols["rijke n=0.3"] = _fused_mslp(
+            Ls["rijke"], sols["rijke n=0"][0].params["ω"], "I4 rijke n=0.3",
+            Dense, dict(maxiter=40, tol=1e-10))
+        sols["damper"] = _fused_mslp(Ls["damper"], 2 * np.pi * 90.0,
+                                     "I4 damper", Dense,
+                                     dict(maxiter=50, tol=1e-9))
+        return sols
+
+    sols, wall, counts, kept, peak = _driven(fused_local, "dense_gmres",
+                                             networks, last=False)
+    refs = {"duct": NET_DUCT, "rijke n=0": NET_RIJKE_N0,
+            "rijke n=0.3": NET_RIJKE_N03, "damper": NET_DAMPER}
+    rels = {k: _rel(v[0].params["ω"], refs[k]) for k, v in sols.items()}
+    f1 = sols["duct"][0].params["ω"].real / 2 / np.pi
+    f1_rel = abs(f1 - C / 4) / (C / 4)
+    Ns = {k: L._fused_solver[1].N for k, L in Ls.items()}
+    print(f"main path I4 (networks, mslp) on {card}: sizes "
+          f"{ {k: L.size for k, L in Ls.items()} }, K2 at N {Ns} | wall "
+          f"{wall:.3f} s | "
+          + "; ".join(f"{k}: {v[1]} iterations ({v[3]} device, {v[4]} polish "
+                      f"steps) flag {v[2]} omega {v[0].params['ω']!r} rel err "
+                      f"{rels[k]:.3e}" for k, v in sols.items())
+          + f" (tol {OMEGA_RTOL:.0e}) | duct f1 {f1!r} Hz against c/4L rel "
+          f"{f1_rel:.3e} (tol {NET_F1_RTOL:.0e}) | peak device memory "
+          f"{peak:.1f} MiB | launches, plain calls {counts}", flush=True)
+    check(all(v[2] == 0 for v in sols.values()),
+          f"I4 flags {[v[2] for v in sols.values()]}")
+    check(max(rels.values()) <= OMEGA_RTOL,
+          f"I4 omega off by {max(rels.values()):.3e}")
+    check(f1_rel <= NET_F1_RTOL, f"I4 duct f1 {f1} Hz")
+    check(all(N == 128 for N in Ns.values()), f"I4 K2 at N {Ns}")
+    _check_launched("I4", counts, "dense_gmres")
+    P, b, m, cycles = kept[0]
+    check(tuple(b.shape) == (2, 128), f"I4 K2 input {tuple(b.shape)}")
+    out["I4"] = (counts, _compare_k2(P, b, m, cycles, K2_MAIN_RTOL,
+                                     "path I4 first launch"))
+    reset_counts()
+    t0 = time.perf_counter()
+    Om, _ = beyn(Ls["duct"], NET_GAMMA, l=6, K=2, N=64, res_tol=1e-6,
+                 backend="dense")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    a, b_ = np.sort_complex(np.asarray(Om)), np.sort_complex(
+        np.asarray(NET_DUCT_BEYN))
+    brel = (np.abs(a - b_) / np.abs(b_)).max() if len(a) == len(b_) \
+        else np.inf
+    print(f"main path I4 (duct, Beyn dense backend, 256 nodes) on {card}: "
+          f"wall {wall:.3f} s | {len(Om)} modes (JAX host {len(b_)}): Hz "
+          + ", ".join(f"{w.real / 2 / np.pi:.6f}" for w in a)
+          + f" | max rel err {brel:.3e} (tol {OMEGA_RTOL:.0e}) | launches, "
+          f"plain calls {counts}", flush=True)
+    check(len(a) == len(b_), f"I4 Beyn found {len(a)} modes, JAX {len(b_)}")
+    check(brel <= OMEGA_RTOL, f"I4 Beyn modes off by {brel:.3e}")
+    check(all(c_ == (0, 0) for c_ in counts.values()),
+          f"I4 Beyn launched a kernel or its plain version: {counts}")
+
+    out["I5"] = phase_shape_part(card)
+    return out
+
+
+def phase_shape_part(card):
+    """Path I5: the shape sensitivities of the 1,369-DOF active Rijke.
+    householder(order=2) from Z0 on the "device" backend (DeviceLU), the
+    discrete-adjoint sensitivity over every surface point (host re-assembly
+    of each point's neighbourhood), and the finite differences at six
+    points picked as tests/test_shape.py:40 picks them (each re-solve a
+    householder(nev=3, order=3) through DeviceLU).  No kernel: the
+    counters must read 0.  Returns the counts of the FD re-solves."""
+    from wavesandeigenvalues_jl_tpu_torch.mesh import rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.models import (
+        discrete_adjoint_shape_sensitivity, discretize,
+        forward_finite_differences_shape_sensitivity,
+        get_surface_point_masks)
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import householder
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+    mesh = rijke_mesh(n_rings=3, nz_cold=17, nz_hot=17)
+    dscrp, c = active_rijke_setup(mesh)
+    L = discretize(mesh, dscrp, c)
+    check(L.size == 1369, f"I5 n={L.size}")
+    timing.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol, n_it, flag = householder(L, Z0, maxiter=20, tol=1e-11, order=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    factors, factor_s = _report_sum(timing.report(), "device_solve.factor")
+    rel = _rel(sol.params["ω"], OMEGA_1369_H2)
+    print(f"main path I5 (shape, householder order 2, DeviceLU) on {card}: "
+          f"n={L.size} | wall {wall:.3f} s, {factors} DeviceLU "
+          f"factorizations {factor_s:.3f} s | iterations {n_it} flag {flag} "
+          f"| omega {sol.params['ω']!r} rel err {rel:.3e} (tol "
+          f"{OMEGA_RTOL:.0e}) | launches, plain calls {counts}", flush=True)
+    check(flag == 0, f"I5 householder flag {flag}")
+    check(rel <= OMEGA_RTOL, f"I5 omega off by {rel:.3e}")
+    check(factors > 0, "I5: no DeviceLU factorization")
+    check(all(c_ == (0, 0) for c_ in counts.values()),
+          f"I5 launched a kernel or its plain version: {counts}")
+
+    surf, tri_mask, tet_mask = get_surface_point_masks(mesh)
+    t0 = time.perf_counter()
+    sens = discrete_adjoint_shape_sensitivity(mesh, dscrp, c, surf,
+                                              tri_mask, tet_mask, L, sol,
+                                              h=1e-8)
+    wall_da = time.perf_counter() - t0
+    pick = np.linspace(0, len(surf) - 1, 6).astype(int)
+    outlet = np.unique(mesh.triangles[mesh.domains["Outlet"]["simplices"]])
+    smax = sens.ravel()[np.argmax(np.abs(sens).ravel())]
+    sout = sens[2, outlet].sum()
+    picked = sens[:, surf[pick]]
+    ref_picked = np.array(SENS_PICKED).T
+    prel = np.abs(picked - ref_picked).max() / np.abs(ref_picked).max()
+    rels = (_rel(smax, SENS_MAX), _rel(sout, SENS_OUTLET_Z))
+
+    timing.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    fd = forward_finite_differences_shape_sensitivity(
+        mesh, dscrp, c, surf[pick], [tri_mask[i] for i in pick],
+        [tet_mask[i] for i in pick], L, sol, h=1e-6)
+    torch.cuda.synchronize()
+    wall_fd = time.perf_counter() - t0
+    counts = read_counts()
+    factors, factor_s = _report_sum(timing.report(), "device_solve.factor")
+    f = fd[:, surf[pick]]
+    da_fd = np.abs(picked - f).max() / np.abs(f).max()
+    jax_fd = [(k, np.abs(f[:, k] - np.array(r)).max() / np.abs(r).max())
+              for k, r in enumerate(FD_PICKED) if r is not None]
+    print(f"main path I5 (shape sensitivities) on {card}: DA over "
+          f"{len(surf)} surface points {wall_da:.3f} s (host) | largest "
+          f"entry {complex(smax)!r}, outlet z-sum {complex(sout)!r}: rel "
+          f"err {rels[0]:.3e} {rels[1]:.3e} (tol {SENS_RTOL:.0e}), six "
+          f"picked points' entries {prel:.3e} of the largest (tol "
+          f"{PICKED_RTOL:.0e}) | FD at the six points {wall_fd:.3f} s, "
+          f"{factors} DeviceLU factorizations {factor_s:.3f} s: |DA − FD| / "
+          f"max|FD| {da_fd:.3e} (tol {DA_FD_RTOL:.0e}); against JAX host's "
+          f"FD where it returns (at the others it raises IndexError, "
+          f"ROADMAP.md Queue 3 F6): "
+          + ", ".join(f"point {surf[pick[k]]} {e:.3e}" for k, e in jax_fd)
+          + f" | launches, plain calls {counts}", flush=True)
+    check(max(rels) <= SENS_RTOL, f"I5 DA off by {max(rels):.3e}")
+    check(prel <= PICKED_RTOL, f"I5 DA picked entries off by {prel:.3e}")
+    check(np.isfinite(f).all() and da_fd <= DA_FD_RTOL,
+          f"I5 |DA - FD| {da_fd:.3e}")
+    check(factors > 0, "I5 FD: no DeviceLU factorization")
+    check(all(c_ == (0, 0) for c_ in counts.values()),
+          f"I5 FD launched a kernel or its plain version: {counts}")
+    return counts
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
@@ -1773,12 +2245,14 @@ def main():
     param_counts, k3_g = phase_param_path(card)
     t_h = time.perf_counter()
     bloch = phase_bloch_path(card)
+    t_i = time.perf_counter()
+    front = phase_frontends_path(card)
     t_end = time.perf_counter()
     print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
           f"{t_e - t_d:.2f} s, path E phases: {t_f - t_e:.2f} s, path F: "
           f"{t_g - t_f:.2f} s, path G: {t_h - t_g:.2f} s, path H: "
-          f"{t_end - t_h:.2f} s of the run's {t_end - t_start:.2f} s",
-          flush=True)
+          f"{t_i - t_h:.2f} s, path I: {t_end - t_i:.2f} s of the run's "
+          f"{t_end - t_start:.2f} s", flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [
@@ -1794,6 +2268,14 @@ def main():
          k2[(2, 1408, 80, 1)], dense["dense_gmres"][0]),
         ("dense_gmres/path H", "dense_gmres", "pallas_gmres.py:50",
          bloch["dense"][1], bloch["dense"][0]["dense_gmres"][0]),
+        ("slab_thomas/path I1", "slab_thomas", "pallas_thomas.py:49",
+         front["I1"][1], front["I1"][0]["slab_thomas"][0]),
+        ("slab_thomas/path I2 Hermite", "slab_thomas", "pallas_thomas.py:49",
+         front["I2"][1], front["I2"][0]["slab_thomas"][0]),
+        ("slab_thomas/path I3 APE", "slab_thomas", "pallas_thomas.py:49",
+         front["I3"][1], front["I3"][0]["slab_thomas"][0]),
+        ("dense_gmres/path I4 networks", "dense_gmres", "pallas_gmres.py:50",
+         front["I4"][1], front["I4"][0]["dense_gmres"][0]),
         ("bsr_spmm", "bsr_spmm", "pallas_spmv.py:94", k1[128],
          apply_counts[128]["bsr_spmm"][0]),
         ("window_spmm/K4", "window_spmm", "window_spmm.py:162", k45[128],

@@ -54,11 +54,14 @@ def cuda():
 
 
 @pytest.mark.parametrize("sides,m,s", [(2, 60, 256), (2, 13, 128),
-                                       (2, 5, 384), (1, 1, 128)])
+                                       (2, 5, 384), (1, 1, 128),
+                                       (2, 20, 1280), (2, 24, 640)])
 def test_kernel_matches_twin(cuda, sides, m, s):
     """K3 against its plain version on the card, to 1e-5 relative (float32
     sums in another order over a 2m-step recursion), on every one of
-    REPEATS launches made back to back."""
+    REPEATS launches made back to back; (2, 20, 1280) and (2, 24, 640) are
+    the Hermite Rijke's and the APE duct's slab shapes (chip_smoke.py path
+    I)."""
     rng = np.random.default_rng(m * s)
     shp = (sides, 2 * m, s, s)
     stream = ((rng.standard_normal(shp) + 1j * rng.standard_normal(shp))

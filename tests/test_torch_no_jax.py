@@ -15,7 +15,12 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.mesh.annular",
     "wavesandeigenvalues_jl_tpu_torch.fem",
     "wavesandeigenvalues_jl_tpu_torch.fem.bloch",
+    "wavesandeigenvalues_jl_tpu_torch.fem.getters",
     "wavesandeigenvalues_jl_tpu_torch.models",
+    "wavesandeigenvalues_jl_tpu_torch.models.network",
+    "wavesandeigenvalues_jl_tpu_torch.models.ape",
+    "wavesandeigenvalues_jl_tpu_torch.models.shape",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.persist",
     "wavesandeigenvalues_jl_tpu_torch.nlevp",
     "wavesandeigenvalues_jl_tpu_torch.ops",
     "wavesandeigenvalues_jl_tpu_torch.ops.cuda_build",

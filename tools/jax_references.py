@@ -7,6 +7,7 @@ G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py panel2 OUT.npz
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py track
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py bloch
+    JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py frontends [PART]
 
 * ``hierarchy``: n and nnz of the passive Rijke family on
   ``rijke_mesh(n_rings=3, nz_cold=12, nz_hot=12)`` and its first and second
@@ -29,6 +30,21 @@ G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
   frequency, ``bloch_mode_sweep`` from the same guesses, the 984-DOF cell
   (nr=3, nphi=3, nz=40) at b = 1 from 426 Hz, and the sweep and per-b
   ``mslp`` from one scalar guess of 280 Hz (ROADMAP.md Queue 3, F5).
+* ``frontends``: path I, every front-end, JAX host on the CPU (PART one of
+  ``flames``, ``hermite``, ``ape``, ``network``, ``shape``; all without):
+  I1 the 7,259-DOF active Rijke with the scalar ``fancyflame``, tutorial
+  08's custom n–τ FTF and a two-branch list ``fancyflame``; I2 the active
+  Rijke on ``rijke_mesh(3, 17, 17)`` with Hermite elements (19,674 DOF, or
+  ``rijke_mesh(2, 10, 10)``, 5,706 DOF, where JAX host does not reach flag
+  0 there) and its ``get_p``/``get_n_grad_p`` at the flame's reference
+  point; I3 the APE duct of tutorial 11 on ``box_mesh(0.25, 0.25, 1.0, 4,
+  4, 24)`` with its Hermite potential flow (12,532 DOF); I4 tutorial 12's
+  three networks (``mslp`` and, for the duct, Beyn); I5 the 1,369-DOF
+  active Rijke's ``householder(order=2)``, its discrete-adjoint shape
+  sensitivity over every surface point and the finite differences at six
+  (one point a call: F6). ``f7`` (not in the default set) runs the
+  quiescent APE duct through the dense fused engine of both packages
+  (ROADMAP.md Queue 3, F7).
 """
 import sys
 import time
@@ -197,6 +213,258 @@ def cmd_bloch():
               f"(flag {flag}), gap {abs(fs - fm) / abs(fm):.3%}")
 
 
+#: path I: the active Rijke flame's data (``models/rijke.py`` of the port)
+Q02U0 = 101325.0 * (1200.0 / 300.0 - 1) * np.pi * 0.025 ** 2 * GAMMA / (
+    GAMMA - 1)
+FLAME_HEAD = (GAMMA, 1.225, Q02U0, [0.0, 0.0, -0.0101], [0.0, 0.0, 1.0])
+#: the second point that normalises I2's point values
+X_NORM = [0.01, 0.0, -0.2]
+#: I1's mslp and I2's (JAX host stalls above tol 1e-10 on Hermite)
+I1_KW = dict(maxiter=30, tol=1e-10)
+I2_KW = dict(maxiter=30, tol=1e-8)
+FANCY_LIST = (["n1", "n2"], ["τ1", "τ2"], ["a1", "a2"], [0.7, 0.3],
+              [1e-3, 1.5e-3], [-1e-8, -2e-8])
+APE_Q = 0.05
+NET_C, NET_A = 347.0, 0.01
+
+
+def active(mesh, flame=None, order="lin"):
+    """The active Rijke family on ``mesh`` with its Flame descriptor
+    replaced by ``flame`` (kind, data) where given."""
+    dscrp = {"Interior": ("interior", ()),
+             "Outlet": ("admittance", ("Y", 1e15)),
+             "Flame": flame or ("flame", FLAME_HEAD + ("n", "τ", 1.0, 1e-3))}
+    return discretize(mesh, dscrp, mesh.generate_field(_c, order="const"),
+                      order=order), dscrp
+
+
+def _solve(L, z0, kw, label, symbol="ω"):
+    from wavesandeigenvalues_jl_tpu.nlevp import mslp
+    t0 = time.perf_counter()
+    sol, n, flag = mslp(L, z0, **kw)
+    print(f"{label}: n={L.size} {n} steps flag {flag} "
+          f"{time.perf_counter() - t0:.1f} s {symbol}={sol.params[symbol]!r}",
+          flush=True)
+    return sol, n, flag
+
+
+def part_flames():
+    from wavesandeigenvalues_jl_tpu.nlevp.algebra import (ScalarFunc,
+                                                          exp_delay)
+
+    class NTauFTF(ScalarFunc):
+        nargs = 1
+
+        def __init__(self, n, tau):
+            self.n, self.tau = n, tau
+
+        def eval(self, values, orders):
+            (z,), (k,) = values, orders
+            return self.n * exp_delay.eval((z, self.tau), (k, 0))
+
+    m = rijke_mesh(n_rings=4, nz_cold=58, nz_hot=58)
+    z0 = 340 * 2 * np.pi
+    for name, flame in (
+            ("FANCY", ("fancyflame", FLAME_HEAD + ("n", "τ", "a", 1.0, 1e-3,
+                                                   -1e-8))),
+            ("CUSTOM", ("flame", FLAME_HEAD + (NTauFTF(1.0, 1e-3),))),
+            ("FANCY_LIST", ("fancyflame", FLAME_HEAD + FANCY_LIST))):
+        L, _ = active(m, flame)
+        sol, _, _ = _solve(L, z0, I1_KW, name)
+        print(f"OMEGA_7259_{name} =", complex(sol.params["ω"]))
+
+
+def part_hermite():
+    from wavesandeigenvalues_jl_tpu.fem import get_n_grad_p, get_p
+    z0 = 340 * 2 * np.pi
+    for rings, nz in ((3, 17), (2, 10)):
+        m = rijke_mesh(n_rings=rings, nz_cold=nz, nz_hot=nz)
+        t0 = time.perf_counter()
+        L, _ = active(m, order="herm")
+        print(f"hermite rijke_mesh({rings}, {nz}, {nz}): n={L.size} nnz="
+              f"{L._stack().nnz} discretize {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        sol, n, flag = _solve(L, z0, I2_KW, f"HERM_{L.size}")
+        if flag != 0:
+            continue
+        x_ref, n_ref = FLAME_HEAD[3], FLAME_HEAD[4]
+        pn = get_p(m, sol.v, X_NORM)
+        print(f"OMEGA_HERM_{L.size} =", complex(sol.params["ω"]))
+        print(f"HERM_{L.size}_POINT =",
+              (complex(get_p(m, sol.v, x_ref) / pn),
+               complex(get_n_grad_p(m, sol.v, x_ref, n_ref) / pn)))
+        break
+
+
+def part_ape():
+    from wavesandeigenvalues_jl_tpu.mesh.generate import box_mesh
+    from wavesandeigenvalues_jl_tpu.models import ape, compute_potflow_field
+    m = box_mesh(lx=0.25, ly=0.25, lz=1.0, nx=4, ny=4, nz=24)
+    m.collect_lines()
+    bc = {"Zmin": APE_Q, "Zmax": -APE_Q}
+    t0 = time.perf_counter()
+    U = compute_potflow_field(m, bc, order="lin")
+    L = ape.discretize(m, bc, U=U)
+    print(f"APE: potential flow + discretize {time.perf_counter() - t0:.1f} "
+          f"s, U_z {U[2].mean()!r} ± {U[2].std():.3e}", flush=True)
+    c = np.sqrt(ape.AMBIENT_GAMMA * ape.AMBIENT_P / ape.AMBIENT_RHO)
+    sol, _, _ = _solve(L, 1j * np.pi * c * 1.05, dict(maxiter=30, tol=1e-9),
+                       "APE", "s")
+    print("S_APE =", complex(sol.params["s"]))
+
+
+def networks():
+    """tutorial 12's networks: (name, element list, params) in order."""
+    C, A = NET_C, NET_A
+    return [
+        ("duct", [("unode", (C, A)), ("duct", (1.0, C, A)),
+                  ("pnode", (C, A))]),
+        ("rijke", [("unode", (C, A)), ("duct", (0.5, C, A)),
+                   ("flame", (C, 2 * C, A)), ("duct", (0.5, 2 * C, A)),
+                   ("pnode", (2 * C, A))]),
+        ("damper", [("unode", (C, A)), ("duct", (0.5, C, A)),
+                    ("helmholtz", (1e-4, 0.02, 0.005, C, A)),
+                    ("duct", (0.5, C, A)), ("pnode", (C, A))]),
+    ]
+
+
+NET_GAMMA = 2 * np.pi * np.array([20 + 20j, 20 - 20j, 500 - 20j, 500 + 20j])
+
+
+def part_network():
+    from wavesandeigenvalues_jl_tpu.models import discretize_network
+    from wavesandeigenvalues_jl_tpu.nlevp import beyn
+    nets = dict(networks())
+    L = discretize_network(nets["duct"])
+    Om, _ = beyn(L, NET_GAMMA, l=6, K=2, N=64, res_tol=1e-6)
+    print("NET_DUCT_BEYN =", tuple(complex(z) for z in Om))
+    sol, _, _ = _solve(L, 2 * np.pi * 80.0, dict(maxiter=30, tol=1e-10),
+                       "duct")
+    print("NET_DUCT =", complex(sol.params["ω"]))
+    L = discretize_network(nets["rijke"])
+    L.params["n"], L.params["τ"] = 0.0, 1e-3
+    sol, _, _ = _solve(L, 2 * np.pi * 150, dict(maxiter=40, tol=1e-10),
+                       "rijke n=0")
+    print("NET_RIJKE_N0 =", complex(sol.params["ω"]))
+    L.params["n"] = 0.3
+    sol, _, _ = _solve(L, sol.params["ω"], dict(maxiter=40, tol=1e-10),
+                       "rijke n=0.3")
+    print("NET_RIJKE_N03 =", complex(sol.params["ω"]))
+    L = discretize_network(nets["damper"])
+    sol, _, _ = _solve(L, 2 * np.pi * 90, dict(maxiter=50, tol=1e-9),
+                       "damper")
+    print("NET_DAMPER =", complex(sol.params["ω"]))
+
+
+def part_shape():
+    from wavesandeigenvalues_jl_tpu.models import (
+        discrete_adjoint_shape_sensitivity,
+        forward_finite_differences_shape_sensitivity, get_surface_point_masks)
+    from wavesandeigenvalues_jl_tpu.nlevp import householder
+    m = rijke_mesh(n_rings=3, nz_cold=17, nz_hot=17)
+    L, dscrp = active(m)
+    c = m.generate_field(_c, order="const")
+    t0 = time.perf_counter()
+    sol, n, flag = householder(L, 340 * 2 * np.pi, maxiter=20, tol=1e-11,
+                               order=2)
+    print(f"shape: n={L.size} householder(order=2) {n} steps flag {flag} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("OMEGA_1369_H2 =", complex(sol.params["ω"]))
+    surf, tri_mask, tet_mask = get_surface_point_masks(m)
+    t0 = time.perf_counter()
+    sens = discrete_adjoint_shape_sensitivity(m, dscrp, c, surf, tri_mask,
+                                              tet_mask, L, sol, h=1e-8)
+    print(f"DA over {len(surf)} surface points: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pick = np.linspace(0, len(surf) - 1, 6).astype(int)
+    outlet = np.unique(m.triangles[m.domains["Outlet"]["simplices"]])
+    flat = np.abs(sens).ravel()
+    print("SENS_MAX =", complex(sens.ravel()[np.argmax(flat)]))
+    print("SENS_OUTLET_Z =", complex(sens[2, outlet].sum()))
+    print("SENS_PICKED =", [tuple(complex(x) for x in sens[:, p])
+                            for p in surf[pick]])
+    # the DA's round-off resolution: the picked entries at other h
+    for h in (2e-8, 5e-9):
+        other = discrete_adjoint_shape_sensitivity(
+            m, dscrp, c, surf[pick], [tri_mask[i] for i in pick],
+            [tet_mask[i] for i in pick], L, sol, h=h)[:, surf[pick]]
+        base = sens[:, surf[pick]]
+        print(f"DA picked at h={h:g} against h=1e-8: "
+              f"{np.abs(other - base).max() / np.abs(base).max():.3e} of the "
+              "largest picked entry")
+    # one point a call: the JAX package's re-solve (householder, nev=3)
+    # raises IndexError where the direct and adjoint Arnoldi runs stop at
+    # different steps (ROADMAP.md Queue 3, F6)
+    fd = []
+    t0 = time.perf_counter()
+    for i in pick:
+        try:
+            f = forward_finite_differences_shape_sensitivity(
+                m, dscrp, c, surf[[i]], [tri_mask[i]], [tet_mask[i]], L,
+                sol, h=1e-6)[:, surf[i]]
+            err = np.abs(sens[:, surf[i]] - f).max() / np.abs(f).max()
+            print(f"FD point {surf[i]}: |DA - FD| / max|FD| {err:.3e}")
+            fd.append(tuple(complex(x) for x in f))
+        except IndexError as e:
+            print(f"FD point {surf[i]}: F6, IndexError {e}")
+            fd.append(None)
+    print(f"FD at 6 points: {time.perf_counter() - t0:.1f} s")
+    print("FD_PICKED =", fd)
+
+
+def part_f7():
+    """F7 (ROADMAP.md Queue 3): the quiescent APE duct of
+    tests/test_ape.py:139 through the dense fused engine of the JAX
+    package (its "device" backend) and of the port (its default), against
+    JAX host and the port's slab engine."""
+    import torch
+    from wavesandeigenvalues_jl_tpu.mesh.generate import box_mesh
+    from wavesandeigenvalues_jl_tpu.models import ape
+    from wavesandeigenvalues_jl_tpu.nlevp import mslp
+    from wavesandeigenvalues_jl_tpu.utils.config import set_solve_backend
+    import wavesandeigenvalues_jl_tpu_torch.models as port_models
+    import wavesandeigenvalues_jl_tpu_torch.nlevp as port_nlevp
+    from wavesandeigenvalues_jl_tpu_torch.mesh.generate import \
+        box_mesh as port_box_mesh
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
+        FusedSlabPencilSolver
+
+    torch.set_num_threads(1)
+    c = np.sqrt(ape.AMBIENT_GAMMA * ape.AMBIENT_P / ape.AMBIENT_RHO)
+    s0, kw = 1j * np.pi * c * 1.06, dict(maxiter=40, tol=1e-9)
+
+    def family(bm, mod):
+        m = bm(lx=0.25, ly=0.25, lz=1.0, nx=1, ny=1, nz=12)
+        m.collect_lines()
+        return mod.discretize(m, {})
+
+    for label, backend in (("JAX host", "host"),
+                           ("JAX FusedPencilSolver", "device")):
+        prev = set_solve_backend(backend)
+        L = family(box_mesh, ape)
+        sol, n, flag = mslp(L, s0, **kw)
+        set_solve_backend(prev)
+        print(f"F7 {label}: n={L.size} {n} steps flag {flag} "
+              f"s={sol.params['s']!r}", flush=True)
+    for label, slab in (("port FusedPencilSolver", False),
+                        ("port FusedSlabPencilSolver", True)):
+        L = family(port_box_mesh, port_models.ape)
+        if slab:
+            L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, "cpu"))
+        sol, n, flag = port_nlevp.mslp(L, s0, device="cpu", **kw)
+        print(f"F7 {label}: n={L.size} {n} steps flag {flag} "
+              f"s={sol.params['s']!r}", flush=True)
+
+
+PARTS = {"flames": part_flames, "hermite": part_hermite, "ape": part_ape,
+         "network": part_network, "shape": part_shape, "f7": part_f7}
+
+
+def cmd_frontends(parts):
+    for name in parts or [p for p in PARTS if p != "f7"]:
+        PARTS[name]()
+
+
 if __name__ == "__main__":
     cmd = sys.argv[1]
     if cmd == "hierarchy":
@@ -209,5 +477,7 @@ if __name__ == "__main__":
         cmd_track()
     elif cmd == "bloch":
         cmd_bloch()
+    elif cmd == "frontends":
+        cmd_frontends(sys.argv[2:])
     else:
         sys.exit(f"unknown command {cmd!r}")

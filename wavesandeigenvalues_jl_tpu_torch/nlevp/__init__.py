@@ -5,9 +5,14 @@ arbitrary-order perturbation theory and Padé updates), Beyn's contour
 solver and the hybrid ``solve``, the parameter studies (branch
 continuation, multipoint Padé), the batched Bloch wavenumber sweep, and a
 gallery of benchmark problems."""
-from .algebra import (ExpAz, ExpDelay, OneMinus, Pow, Product, ScalarFunc,
-                      SumYExpIKX, exp_delay, generate_sum_y_exp_ikx, pow1,
-                      pow2, pow_a)
+from .algebra import (ExpAz, ExpDelay, ExpPM, OneMinus, Pow, Product,
+                      Reciprocal, ScalarFunc, StateSpace, SumYExpIKX, Wrapped,
+                      ZExpIAZ, ZTimesG, exp_az, exp_az2mzit, exp_delay,
+                      exp_pm, generate_1_gz, generate_1_over_gz,
+                      generate_exp_az, generate_gz_hz, generate_stsp_z,
+                      generate_sum_y_exp_ikx, generate_z_g_z, pow, pow0,
+                      pow1, pow2, pow_a, sum_n_exp_az2mzit, tau_delay,
+                      z_exp__iaz, z_exp_iaz)
 from .family import AUX_OPERATOR, OperatorFamily, Solution, Term
 from .pade import (MultipointPade, Polynomial, RationalPolynomial,
                    conv_radius, estimate_pol, multipoint_pade,

@@ -163,7 +163,12 @@ def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
             delta_z: List[complex] = []
             back_delta: List[complex] = []
             L.active = [aux, eig]
-            for i in range(len(lam_arr)):
+            # the direct and adjoint Arnoldi runs can stop (breakdown) at
+            # different steps and return fewer Ritz pairs on one side: pair
+            # only the pairs both sides have (the JAX package pairs
+            # len(lam_arr) and raises IndexError there; ROADMAP.md Queue 3,
+            # F6)
+            for i in range(min(V.shape[1], Vadj.shape[1])):
                 L.params[aux] = lam_arr[i]
                 s = Solution(L.params, V[:, i], Vadj[:, i], aux)
                 perturb(s, L, eig, order, mode="householder",

@@ -111,6 +111,21 @@ class CSR:
     def scaled(self, a) -> "CSR":
         return CSR(self.indptr, self.indices, self.data * a, self.shape)
 
+    def __add__(self, other: "CSR") -> "CSR":
+        if self.shape != other.shape:
+            raise ValueError("shape mismatch")
+        ra, ca, va = self.to_coo()
+        rb, cb, vb = other.to_coo()
+        return CSR.from_coo(np.concatenate([ra, rb]),
+                            np.concatenate([ca, cb]),
+                            np.concatenate([va, vb]), self.shape)
+
+    def __sub__(self, other: "CSR") -> "CSR":
+        return self + other.scaled(-1.0)
+
+    def norm(self) -> float:
+        return float(np.linalg.norm(self.data))
+
 
 # ---------------------------------------------------------------------------
 # stacked union-pattern operator
