@@ -59,9 +59,23 @@ their real size, each with the launch counters set to 0 just before it:
   sensitivities (``householder(order=2)`` and the finite-difference
   re-solves through ``DeviceLU``, the discrete adjoint on the host).
   Each against pinned JAX host values; K3 and K2 held against their plain
-  versions on the parts' own inputs as in path H.
+  versions on the parts' own inputs as in path H;
+* path J, mesh I/O, persistence and fitting: J1 the slab path's 7,259-DOF
+  Rijke mesh written as gmsh v4.1 and v2.2 (``write_gmsh41``,
+  ``write_gmsh22`` below), read back by ``read_mesh``, discretized and
+  solved through the slab engine and K3, its mode written by
+  ``vtk_write`` (ascii and binary) and parsed back; J2 the vector-fitted
+  n–τ flame (``fit_state_space``) at 7,259 DOF through the slab engine
+  and K3; J3 ``save_family``/``load_family`` of the J2 and slab-path
+  families, each re-solved, ``save_solution``/``read_solution``, and the
+  TOML dialect (``save_family_toml``/``load_family_toml``, one panel
+  apply through K1 on each family); J4 J1's v2.2 mesh solved under
+  ``start_device_trace``/``stop_device_trace``, K3's launches counted in
+  the Chrome trace.  Against pinned JAX host values and the slab path;
+  K3 held against its plain version on J1's first and last inputs.
 
-Every phase prints one line and any failure exits non-zero.  The
+The build phase also compiles the port's host C++ library
+(``native/``, g++) beside the kernels.  Every phase prints one line and any failure exits non-zero.  The
 second-to-last line is the kernels' JSON record, the last line the device
 record:
 
@@ -316,6 +330,23 @@ FD_PICKED = (None, None,
 #: tools/jax_references.py frontends shape); DA against FD: the bar of
 #: tests/test_shape.py:50
 SENS_RTOL, PICKED_RTOL, DA_FD_RTOL = 1e-6, 1e-5, 5e-3
+#: path J: the fitted flame of tests/test_fitting.py:47-72 (vector fitting
+#: of the noise-free n–τ response, τ 1e-3, order 12, 120 points from 100 to
+#: 600 Hz; its largest error against the samples within FIT_ERR) on the
+#: 7,259-DOF Rijke with the speed of sound per point and the flame
+#: referenced 1.2 mm upstream; JAX host mslp from Z0 (maxiter 20, tol
+#: 1e-10) with the fitted flame and with the built-in n–τ flame, computed by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py io
+FIT_FREQS, FIT_TAU, FIT_ORDER = np.linspace(100, 600, 120), 1e-3, 12
+FIT_X_REF, FIT_ERR = [0.0, 0.0, -0.0012], 1e-6
+OMEGA_7259_FITTED = 1074.8973884206362 + 373.89254677273397j
+OMEGA_7259_FIT_NTAU = 1074.8957455993418 + 373.89096626744697j
+#: the fitted flame's ω against the n–τ flame's: tests/test_fitting.py:72
+FIT_NTAU_RTOL = 1e-3
+#: J1's and J4's ω (a gmsh copy of the slab path's mesh, its simplices in
+#: Mesh.from_raw's order) against the slab path's; a family reloaded from
+#: npz re-solved, and one reloaded from TOML applied, against the original
+J_SAME_RTOL, J_RELOAD_RTOL = 1e-12, 1e-14
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -362,22 +393,26 @@ def phase_device():
 def phase_build():
     """One nvcc per kernel source, all started together (the port's four,
     and the warp-per-row yardstick of K4/K5 through
-    ``tools/patched_kernel.build_patched`` with no line changed), then load
-    each."""
+    ``tools/patched_kernel.build_patched`` with no line changed), and g++
+    on the port's host library beside them; then load each."""
     import importlib
     from concurrent.futures import ThreadPoolExecutor
 
     sys.path.insert(0, TOOLS)
     from patched_kernel import build_patched
 
+    from wavesandeigenvalues_jl_tpu_torch import native
     from wavesandeigenvalues_jl_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         yardstick = pool.submit(build_patched, "warp_row_spmm", [], [],
                                 "as_is", WARP_ROW)
+        host = pool.submit(native.build)
         info = cuda_build.compile_all()
         lib = yardstick.result()
+        host = host.result()
     wall = time.perf_counter() - t0
+    native.load()
     for name in cuda_build.KERNELS:
         importlib.import_module(
             f"wavesandeigenvalues_jl_tpu_torch.ops.{name}").build()
@@ -386,9 +421,11 @@ def phase_build():
                          if "registers" in ln or "spill" in ln)
         print(f"build: {name} {rec['path']} nvcc {rec['seconds']:.2f} s | "
               f"{ptxas}", flush=True)
-    print(f"build: {len(info)} kernels and the warp-per-row yardstick in "
-          f"{wall:.2f} s of wall, loaded in {time.perf_counter() - t0:.2f} s",
+    print(f"build: host_kernels {host['path']} g++ {host['seconds']:.2f} s",
           flush=True)
+    print(f"build: {len(info)} kernels, the warp-per-row yardstick and the "
+          f"host library in {wall:.2f} s of wall, loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     fn = lib.warp_row_spmm_c64
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
@@ -661,7 +698,8 @@ def phase_compare_k2(L1369):
 
 def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
     """Drive mslp on the card with the counters set to 0 just before it;
-    print its line, check it, and return the counts read just after.  The
+    print its line, check it, and return the counts read just after and
+    the eigenvalue.  The
     fused engine must carry the whole solve: its hand-over to the general
     engine (a non-finite device step) is an error here, every iteration
     must be one of its device or polish steps, and no phase of the general
@@ -716,7 +754,7 @@ def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
     check(twin == 0, f"{label}: the plain {kernel} ran {twin} times")
     check(sol.v.shape == (L.size,) and np.isfinite(sol.v).all(),
           f"{label}: eigenvector not finite")
-    return counts
+    return counts, om
 
 
 def phase_slab_path(L7259):
@@ -2211,6 +2249,345 @@ def phase_shape_part(card):
     return counts
 
 
+def _element_groups(mesh):
+    """[(dim, gmsh type, elements, sorted domain names)]: the mesh's
+    lines, triangles and tetrahedra grouped by the set of domains each
+    belongs to (domains overlap: "Interior" holds every tetrahedron)."""
+    groups = []
+    for dim, etype, elems in ((1, 1, mesh.lines), (2, 2, mesh.triangles),
+                              (3, 4, mesh.tetrahedra)):
+        member = [[] for _ in range(len(elems))]
+        for name, dd in mesh.domains.items():
+            if dd["dimension"] == dim:
+                for i in np.asarray(dd["simplices"], np.int64):
+                    member[i].append(name)
+        sets = {}
+        for i, names in enumerate(member):
+            sets.setdefault(tuple(sorted(names)), []).append(i)
+        for names, idx in sets.items():
+            groups.append((dim, etype, elems[np.asarray(idx)], names))
+    return groups
+
+
+def write_gmsh41(path, mesh):
+    """Write ``mesh`` as a gmsh v4.1 ASCII file: one entity per set of
+    domains, carrying every physical tag of its set; coordinates by
+    ``repr``, so the file holds them exactly."""
+    tags = {name: i + 1 for i, name in enumerate(mesh.domains)}
+    groups = _element_groups(mesh)
+    pts = mesh.points
+    out = ["$MeshFormat", "4.1 0 8", "$EndMeshFormat", "$PhysicalNames",
+           str(len(tags))]
+    out += [f'{mesh.domains[n]["dimension"]} {t} "{n}"'
+            for n, t in tags.items()]
+    out += ["$EndPhysicalNames", "$Entities"]
+    counts = [0, 0, 0, 0]
+    ent_lines, ent_tag = [], []
+    for dim, _, elems, names in groups:
+        counts[dim] += 1
+        ent_tag.append(counts[dim])
+        lo = pts[:, elems.ravel()].min(axis=1)
+        hi = pts[:, elems.ravel()].max(axis=1)
+        ent_lines.append(" ".join(
+            [str(counts[dim])] + [repr(float(x)) for x in (*lo, *hi)]
+            + [str(len(names))] + [str(tags[n]) for n in names] + ["0"]))
+    out.append(" ".join(str(c) for c in counts))
+    # the entity lines go out by dimension, as the counts line announces
+    order = sorted(range(len(groups)), key=lambda g: groups[g][0])
+    out += [ent_lines[g] for g in order]
+    n = mesh.n_points
+    out += ["$EndEntities", "$Nodes", f"1 {n} 1 {n}", f"3 1 0 {n}"]
+    out += [str(i + 1) for i in range(n)]
+    out += [" ".join(repr(float(x)) for x in pts[:, i]) for i in range(n)]
+    n_el = sum(len(g[2]) for g in groups)
+    out += ["$EndNodes", "$Elements", f"{len(groups)} {n_el} 1 {n_el}"]
+    tag = 0
+    for g in order:
+        dim, etype, elems, _ = groups[g]
+        out.append(f"{dim} {ent_tag[g]} {etype} {len(elems)}")
+        for e in elems:
+            tag += 1
+            out.append(" ".join([str(tag)] + [str(int(v) + 1) for v in e]))
+    out.append("$EndElements")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
+def write_gmsh22(path, mesh):
+    """Write ``mesh`` as a gmsh v2.2 ASCII file: an element of several
+    domains once per physical tag (the reader's ``Mesh.from_raw`` merges
+    the copies), one of none once with physical tag 0."""
+    tags = {name: i + 1 for i, name in enumerate(mesh.domains)}
+    pts = mesh.points
+    out = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$PhysicalNames",
+           str(len(tags))]
+    out += [f'{mesh.domains[n]["dimension"]} {t} "{n}"'
+            for n, t in tags.items()]
+    n = mesh.n_points
+    out += ["$EndPhysicalNames", "$Nodes", str(n)]
+    out += [" ".join([str(i + 1)] + [repr(float(x)) for x in pts[:, i]])
+            for i in range(n)]
+    out += ["$EndNodes", "$Elements"]
+    body = []
+    for ent, (dim, etype, elems, names) in enumerate(_element_groups(mesh),
+                                                     start=1):
+        for phys in [tags[nm] for nm in names] or [0]:
+            for e in elems:
+                body.append(" ".join(
+                    [str(len(body) + 1), str(etype), "2", str(phys),
+                     str(ent)] + [str(int(v) + 1) for v in e]))
+    out += [str(len(body))] + body + ["$EndElements"]
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
+def _read_vtu_complex(path, key):
+    """The complex point field ``key`` of a VTU file written by vtk_write
+    (ascii or inline base64 binary), parsed with xml.etree."""
+    import base64
+    import xml.etree.ElementTree as ET
+    arrays = {}
+    for da in ET.parse(path).getroot().iter("DataArray"):
+        if da.get("format") == "ascii":
+            arrays[da.get("Name")] = np.array(da.text.split(), np.float64)
+        else:
+            raw = base64.b64decode(da.text.strip())
+            nbytes = int(np.frombuffer(raw[:4], np.uint32)[0])
+            arrays[da.get("Name")] = np.frombuffer(raw[4:4 + nbytes],
+                                                   np.float64)
+    return arrays[key + ".real"] + 1j * arrays[key + ".imag"]
+
+
+def _same_mesh(a, b):
+    """True when two meshes hold equal arrays and domains."""
+    return (all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("points", "lines", "triangles", "tetrahedra"))
+            and a.domains.keys() == b.domains.keys()
+            and all(a.domains[k]["dimension"] == b.domains[k]["dimension"]
+                    and np.array_equal(a.domains[k]["simplices"],
+                                       b.domains[k]["simplices"])
+                    for k in a.domains))
+
+
+def _same_terms(a, b):
+    """True when two families hold equal params and term matrices."""
+    return (list(a.params) == list(b.params)
+            and all(a.params[k] == b.params[k]
+                    or (np.isnan(a.params[k]) and np.isnan(b.params[k]))
+                    for k in a.params)
+            and len(a.terms) == len(b.terms)
+            and all(s.symbol == t.symbol and s.params == t.params
+                    and all(np.array_equal(getattr(s.coeff, k),
+                                           getattr(t.coeff, k))
+                            for k in ("indptr", "indices", "data"))
+                    for s, t in zip(a.terms, b.terms)))
+
+
+def _k3_trace_launches(path):
+    """Launches of K3's kernel (symbol ``slab_thomas_kernel``) among the
+    kernel events of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "slab_thomas_kernel" in e.get("name", ""))
+
+
+def phase_io_path(card, L7259, om_slab):
+    """Path J: mesh I/O, persistence, fitting and the device trace on the
+    card, each solve driven with the counters set to 0 just before it and
+    read just after.  J1: the slab path's 7,259-DOF Rijke mesh written as
+    gmsh v4.1 and v2.2, read back, discretized and solved through the slab
+    engine and K3, its mode written to VTU (ascii and binary) and read
+    back; J2: the fitted flame of tests/test_fitting.py at 7,259 DOF
+    through the slab engine and K3; J3: the J2 family and the slab path's
+    family through save_family/load_family and re-solved, J2's Solution
+    through save_solution/read_solution, the slab path's family through
+    the reference's TOML dialect (one panel apply through K1 on each), and
+    the fitted family refused by the TOML writer; J4: J1's v2.2 mesh
+    solved under a torch.profiler device trace, K3's launches counted in
+    it.  K3 against its plain version on the first and the last of J1's
+    own inputs.  Returns {"J": (counts summed over J's solves, record)}."""
+    import tempfile
+
+    from wavesandeigenvalues_jl_tpu_torch.mesh import (Mesh, read_mesh,
+                                                       rijke_mesh, vtk_write)
+    from wavesandeigenvalues_jl_tpu_torch.models import discretize
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        active_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import (
+        fit_state_space, fused_slab, load_family, load_family_toml,
+        read_solution, save_family, save_family_toml, save_solution)
+    from wavesandeigenvalues_jl_tpu_torch.ops import operator_apply
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+    Slab = fused_slab.FusedSlabPencilSolver
+    total = {}
+
+    def drive(label, L, kw, expect, bar, last=True):
+        """One slab-engine mslp of path J; checks flag 0 and ω within
+        bar·|ω| of ``expect``.  Returns (solution, kept K3 inputs)."""
+        r, wall, counts, kept, peak = _driven(
+            fused_slab, "slab_thomas",
+            lambda: _fused_mslp(L, Z0, label, Slab, kw), last)
+        _check_launched(label, counts, "slab_thomas")
+        for k, (n, _) in counts.items():
+            total[k] = (total.get(k, (0, 0))[0] + n, 0)
+        om = r[0].params[r[0].eigval]
+        rel = _rel(om, expect)
+        _slab_line(label, card, L, r, wall, counts, peak,
+                   f"omega {om!r} rel err {rel:.3e} (tol {bar:.0e})")
+        check(rel <= bar, f"{label} omega off by {rel:.3e}")
+        return r[0], kept
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # J1: gmsh v4.1 and v2.2 of the slab path's mesh, read back
+        mesh = rijke_mesh(n_rings=4, nz_cold=58, nz_hot=58)
+        ref = Mesh.from_raw(mesh.points, mesh.lines, mesh.triangles,
+                            mesh.tetrahedra, mesh.domains)
+        read = {}
+        for ver, writer in (("4.1", write_gmsh41), ("2.2", write_gmsh22)):
+            path = os.path.join(tmp, f"rijke_{ver}.msh")
+            t0 = time.perf_counter()
+            writer(path, mesh)
+            t1 = time.perf_counter()
+            read[ver] = read_mesh(path)
+            t2 = time.perf_counter()
+            print(f"J1 gmsh v{ver}: {mesh.n_points} points, "
+                  f"{len(mesh.tetrahedra)} tetrahedra, "
+                  f"{os.path.getsize(path) / 2**20:.1f} MiB written in "
+                  f"{t1 - t0:.2f} s, read_mesh {t2 - t1:.2f} s", flush=True)
+            check(_same_mesh(read[ver], ref),
+                  f"J1 gmsh v{ver} read back differs from the generated "
+                  "mesh")
+        t0 = time.perf_counter()
+        L1 = discretize(read["4.1"], *active_rijke_setup(read["4.1"]))
+        print(f"J1 discretize of the read mesh {time.perf_counter() - t0:.2f}"
+              " s", flush=True)
+        check(L1.size == 7259, f"J1 n={L1.size}")
+        kw1 = dict(maxiter=30, tol=1e-11)
+        sol1, kept = drive("J1 (gmsh v4.1 mesh, mslp)", L1, kw1, OMEGA_7259,
+                           OMEGA_RTOL)
+        om1 = sol1.params["ω"]
+        rel = _rel(om1, om_slab)
+        print(f"J1 omega against the slab path's {om_slab!r}: rel "
+              f"{rel:.3e} (tol {J_SAME_RTOL:.0e})", flush=True)
+        check(rel <= J_SAME_RTOL, f"J1 omega off the slab path's by {rel}")
+        # the read mesh's simplices are in Mesh.from_raw's order, so the
+        # flame's reference point may fall in another of the tetrahedra
+        # that share it: the pattern, and the partition, can differ from
+        # the slab path's
+        solver = L1._fused_solver[1]
+        record = _k3_pair("path J1", kept, (2, solver.m, solver.s))
+        del kept
+        for fmt in ("ascii", "binary"):
+            t0 = time.perf_counter()
+            files = vtk_write(os.path.join(tmp, f"mode_{fmt}"), read["4.1"],
+                              {"p": sol1.v}, fmt=fmt)
+            back = _read_vtu_complex(files[0], "p")
+            err = float(np.abs(np.abs(back) - np.abs(sol1.v)).max())
+            print(f"J1 vtk_write {fmt}: {os.path.basename(files[0])} "
+                  f"{os.path.getsize(files[0]) / 2**20:.2f} MiB, written and "
+                  f"parsed in {time.perf_counter() - t0:.2f} s, max ||p| - "
+                  f"|v|| {err:.3e}", flush=True)
+            check(len(files) == 1 and np.array_equal(back, sol1.v),
+                  f"J1 vtk {fmt}: the mode read back differs by {err}")
+
+        # J2: the fitted flame (tests/test_fitting.py:47-72) at 7,259 DOF
+        data = np.exp(-1j * 2 * np.pi * FIT_FREQS * FIT_TAU)
+        t0 = time.perf_counter()
+        ss, fitted = fit_state_space(FIT_FREQS, data, order=FIT_ORDER)
+        fit_s = time.perf_counter() - t0
+        fit_err = float(np.abs(fitted - data).max())
+        c = mesh.generate_field(lambda x, y, z: np.where(
+            z < 0, np.sqrt(1.4 * 287.05 * 300.0),
+            np.sqrt(1.4 * 287.05 * 1200.0)))
+        dscrp = dict(active_rijke_setup(mesh)[0])
+        dscrp["Flame"] = ("flame", dscrp["Flame"][1][:3]
+                          + (FIT_X_REF, [0.0, 0.0, 1.0], ss))
+        t0 = time.perf_counter()
+        L2 = discretize(mesh, dscrp, c)
+        print(f"J2 fit: order {FIT_ORDER} in {fit_s:.3f} s, max error "
+              f"{fit_err:.3e} (tol {FIT_ERR:.0e}) | discretize "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        check(fit_err <= FIT_ERR, f"J2 fit error {fit_err:.3e}")
+        kw2 = dict(maxiter=20, tol=1e-10)
+        sol2, _ = drive("J2 (fitted flame, mslp)", L2, kw2, OMEGA_7259_FITTED,
+                        OMEGA_RTOL, last=False)
+        om2 = sol2.params["ω"]
+        rel = _rel(om2, OMEGA_7259_FIT_NTAU)
+        print(f"J2 omega against JAX host's n-tau flame "
+              f"{OMEGA_7259_FIT_NTAU!r}: rel {rel:.3e} (tol "
+              f"{FIT_NTAU_RTOL:.0e})", flush=True)
+        check(rel <= FIT_NTAU_RTOL, f"J2 off the n-tau flame by {rel}")
+
+        # J3: persistence
+        for label, L, om, kw in (("J3 fitted", L2, om2, kw2),
+                                 ("J3 slab path", L7259, om_slab, kw1)):
+            path = os.path.join(tmp, "family.npz")
+            t0 = time.perf_counter()
+            save_family(path, L)
+            t1 = time.perf_counter()
+            Lr = load_family(path)
+            print(f"{label} family npz: save_family {t1 - t0:.2f} s, "
+                  f"load_family {time.perf_counter() - t1:.2f} s, "
+                  f"{os.path.getsize(path) / 2**20:.1f} MiB", flush=True)
+            check(_same_terms(Lr, L), f"{label}: loaded family differs")
+            drive(f"{label} (reloaded npz, mslp)", Lr, kw, om,
+                  J_RELOAD_RTOL, last=False)
+        path = os.path.join(tmp, "solution.npz")
+        save_solution(path, sol2)
+        back = read_solution(path)
+        check(back.params == sol2.params and np.array_equal(back.v, sol2.v)
+              and np.array_equal(back.v_adj, sol2.v_adj),
+              "J3 save_solution/read_solution differs")
+        path = os.path.join(tmp, "family.toml")
+        t0 = time.perf_counter()
+        save_family_toml(path, L7259)
+        t1 = time.perf_counter()
+        Lt = load_family_toml(path)
+        t2 = time.perf_counter()
+        check(_same_terms(Lt, L7259), "J3 TOML family differs")
+        X = np.random.default_rng(12).standard_normal(
+            (L7259.size, 128)).astype(np.complex64)
+        Y, Yt = (operator_apply(L, OMEGA_APPLY, X) for L in (L7259, Lt))
+        err = float(np.abs(Yt - Y).max() / np.abs(Y).max())
+        print(f"J3 slab path family TOML: save_family_toml {t1 - t0:.2f} s, "
+              f"load_family_toml {t2 - t1:.2f} s, "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB; panel apply through"
+              f" K1 of the two families: rel {err:.3e} (tol "
+              f"{J_RELOAD_RTOL:.0e})", flush=True)
+        check(err <= J_RELOAD_RTOL, f"J3 TOML apply differs by {err}")
+        path = os.path.join(tmp, "fitted.toml")
+        try:
+            save_family_toml(path, L2)
+        except ValueError as e:
+            print(f"J3 fitted family to TOML refused: {e}", flush=True)
+        else:
+            fail("J3: the fitted family was written to TOML")
+        check(not os.path.exists(path), "J3: refused TOML file was written")
+
+        # J4: the device trace of J1's v2.2 mesh solve
+        L4 = discretize(read["2.2"], *active_rijke_setup(read["2.2"]))
+        logdir = os.path.join(tmp, "trace")
+        timing.start_device_trace(logdir)
+        n_before = total["slab_thomas"][0]
+        try:
+            drive("J4 (gmsh v2.2 mesh, mslp, traced)", L4, kw1, om1,
+                  J_SAME_RTOL, last=False)
+        finally:
+            trace = timing.stop_device_trace()
+        counted = total["slab_thomas"][0] - n_before
+        traced = _k3_trace_launches(trace)
+        print(f"J4 trace {os.path.basename(trace)} "
+              f"{os.path.getsize(trace) / 2**20:.1f} MiB: "
+              f"slab_thomas_kernel {traced} launches in the trace, "
+              f"{counted} counted by the wrapper", flush=True)
+        check(traced == counted > 0, f"J4: the trace holds {traced} K3 "
+              f"launches, the wrapper counted {counted}")
+        print("J4 phases of the traced solve:\n" + timing.format_report(),
+              flush=True)
+    return {"J": (total, record)}
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
@@ -2226,8 +2603,8 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     k2 = phase_compare_k2(L1369)
-    slab = phase_slab_path(L7259)
-    dense = phase_dense_path(L1369)
+    slab, om_slab = phase_slab_path(L7259)
+    dense, _ = phase_dense_path(L1369)
     apply_counts, A = phase_apply_path(L7259)
     k1 = phase_compare_k1(A)
     t0 = time.perf_counter()
@@ -2247,12 +2624,15 @@ def main():
     bloch = phase_bloch_path(card)
     t_i = time.perf_counter()
     front = phase_frontends_path(card)
+    t_j = time.perf_counter()
+    front.update(phase_io_path(card, L7259, om_slab))
     t_end = time.perf_counter()
     print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
           f"{t_e - t_d:.2f} s, path E phases: {t_f - t_e:.2f} s, path F: "
           f"{t_g - t_f:.2f} s, path G: {t_h - t_g:.2f} s, path H: "
-          f"{t_i - t_h:.2f} s, path I: {t_end - t_i:.2f} s of the run's "
-          f"{t_end - t_start:.2f} s", flush=True)
+          f"{t_i - t_h:.2f} s, path I: {t_j - t_i:.2f} s, path J: "
+          f"{t_end - t_j:.2f} s of the run's {t_end - t_start:.2f} s",
+          flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [
@@ -2276,6 +2656,8 @@ def main():
          front["I3"][1], front["I3"][0]["slab_thomas"][0]),
         ("dense_gmres/path I4 networks", "dense_gmres", "pallas_gmres.py:50",
          front["I4"][1], front["I4"][0]["dense_gmres"][0]),
+        ("slab_thomas/path J", "slab_thomas", "pallas_thomas.py:49",
+         front["J"][1], front["J"][0]["slab_thomas"][0]),
         ("bsr_spmm", "bsr_spmm", "pallas_spmv.py:94", k1[128],
          apply_counts[128]["bsr_spmm"][0]),
         ("window_spmm/K4", "window_spmm", "window_spmm.py:162", k45[128],

@@ -16,14 +16,14 @@ from wavesandeigenvalues_jl_tpu.ops.reorder import \
 from wavesandeigenvalues_jl_tpu.ops.reorder import \
     permute_csr as permute_csr_jax
 from wavesandeigenvalues_jl_tpu.ops.sparse import CSR as CSRJax
+from wavesandeigenvalues_jl_tpu_torch import native as native_port
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
 from wavesandeigenvalues_jl_tpu_torch.ops.bsr_spmm import (
     ApplyPlan, BsrSpmm, bsr_spmm, bsr_spmm_packed_ref, bsr_spmm_ref,
     operator_apply, pack, random_panel, unpack)
 from wavesandeigenvalues_jl_tpu_torch.ops.device import BsrOperator
-from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (bandwidth,
-                                                          cuthill_mckee,
-                                                          permute_csr)
+from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (
+    bandwidth, cuthill_mckee, cuthill_mckee_numpy, permute_csr)
 
 torch.set_num_threads(2)
 
@@ -48,10 +48,15 @@ def _rowwise(Y, Yref, A, X):
 
 
 def test_cuthill_mckee_equals_jax_numpy_path(operator, monkeypatch):
-    """Same permutation as the JAX numpy/deque path (its native C++ BFS
-    switched off), both orders, and the same bandwidths."""
+    """Same permutation as the JAX numpy/deque path, both orders, and the
+    same bandwidths: both packages' native C++ BFS switched off (the
+    port's numpy twin in its place; test_torch_native.py holds the two
+    native routes against each other)."""
     A, Aj = operator
     monkeypatch.setattr(native_jax, "rcm", lambda indptr, indices: None)
+    monkeypatch.setattr(native_port, "rcm",
+                        lambda indptr, nbrs: cuthill_mckee_numpy(indptr,
+                                                                 nbrs))
     for reverse in (True, False):
         perm = cuthill_mckee(A, reverse=reverse)
         np.testing.assert_array_equal(perm,

@@ -45,6 +45,12 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.nlevp.bloch_sweep",
     "wavesandeigenvalues_jl_tpu_torch.parallel",
     "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",
+    "wavesandeigenvalues_jl_tpu_torch.native",
+    "wavesandeigenvalues_jl_tpu_torch.mesh.io",
+    "wavesandeigenvalues_jl_tpu_torch.mesh.vtk",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.fitting",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.toml_compat",
+    "wavesandeigenvalues_jl_tpu_torch.nlevp.family",
     "chip_smoke",
 ]
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Reference values of the JAX package, computed on the CPU, for paths F,
-G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
+"""Reference values of the JAX package, computed on the CPU, for paths F
+to J of ``chip_smoke.py`` (the PyTorch port holds itself against them).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py hierarchy
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py beyn55k
@@ -8,6 +8,7 @@ G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py track
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py bloch
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py frontends [PART]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python3 tools/jax_references.py io
 
 * ``hierarchy``: n and nnz of the passive Rijke family on
   ``rijke_mesh(n_rings=3, nz_cold=12, nz_hot=12)`` and its first and second
@@ -45,6 +46,13 @@ G and H of ``chip_smoke.py`` (the PyTorch port holds itself against them).
   (one point a call: F6). ``f7`` (not in the default set) runs the
   quiescent APE duct through the dense fused engine of both packages
   (ROADMAP.md Queue 3, F7).
+* ``io``: path J2, the fitted flame of ``tests/test_fitting.py:47-72``
+  (vector fitting of the noise-free n–τ response, τ 1e-3, order 12, 120
+  points from 100 to 600 Hz) on the 7,259-DOF Rijke
+  (``rijke_mesh(4, 58, 58)``, speed of sound per point, flame referenced
+  1.2 mm upstream): the fit's largest error, JAX host ``mslp`` from 340·2π
+  (maxiter 20, tol 1e-10) with the fitted flame and with the built-in n–τ
+  flame.
 """
 import sys
 import time
@@ -465,6 +473,29 @@ def cmd_frontends(parts):
         PARTS[name]()
 
 
+def cmd_io():
+    from wavesandeigenvalues_jl_tpu.nlevp.fitting import fit_state_space
+    freqs = np.linspace(100, 600, 120)
+    data = np.exp(-1j * 2 * np.pi * freqs * 1e-3)
+    t0 = time.perf_counter()
+    ss, fitted = fit_state_space(freqs, data, order=12)
+    print(f"fit: order 12, {time.perf_counter() - t0:.3f} s, max error "
+          f"{np.abs(fitted - data).max()!r}", flush=True)
+    mesh = rijke_mesh(n_rings=4, nz_cold=58, nz_hot=58)
+    c = mesh.generate_field(_c)
+    head = FLAME_HEAD[:3] + ([0.0, 0.0, -0.0012], [0.0, 0.0, 1.0])
+    base = {"Interior": ("interior", ()),
+            "Outlet": ("admittance", ("Y", 1e15))}
+    kw = dict(maxiter=20, tol=1e-10)
+    for label, flame in (("fitted flame", head + (ss,)),
+                         ("n-tau flame", head + ("n", "τ", 1.0, 1e-3))):
+        t0 = time.perf_counter()
+        L = discretize(mesh, {**base, "Flame": ("flame", flame)}, c)
+        print(f"{label}: discretize {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        _solve(L, 340 * 2 * np.pi, kw, f"J2 {label}")
+
+
 if __name__ == "__main__":
     cmd = sys.argv[1]
     if cmd == "hierarchy":
@@ -479,5 +510,7 @@ if __name__ == "__main__":
         cmd_bloch()
     elif cmd == "frontends":
         cmd_frontends(sys.argv[2:])
+    elif cmd == "io":
+        cmd_io()
     else:
         sys.exit(f"unknown command {cmd!r}")

@@ -8,7 +8,7 @@ device step is PyTorch, and every Pallas kernel on a ported path is a
 hand-written CUDA kernel under ``csrc/``.  The port never imports jax.
 
 Subpackages: ``mesh``, ``fem``, ``models``, ``nlevp``, ``ops``,
-``parallel``, ``utils``.
+``parallel``, ``utils``, and ``native`` (the host C++ library).
 """
 from .utils import config  # noqa: F401  (sets the TF32 flags, dtypes)
 
@@ -19,6 +19,6 @@ def __getattr__(name):
     # lazy subpackage access, as in the JAX package
     import importlib
     if name in ("mesh", "fem", "models", "nlevp", "ops", "parallel",
-                "utils"):
+                "utils", "native"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)

@@ -17,7 +17,12 @@
 //                              and the backward phase reads it back
 // s is a multiple of 128, at most 9472 (the double-buffered carry and two
 // ring stages of 8 rows fill shared memory there).  Products accumulate in
-// float32 complex, as the TPU kernel does (preferred_element_type=f32).
+// float32 complex within a chunk of a stage, as the TPU kernel does
+// (preferred_element_type=f32), and the chunks' sums, the reduction of a
+// column's partial sums and y_i = bt_i - sum in float64 before y_i is
+// rounded to complex64: a thread's float32 sum over a whole step (427
+// terms at s = 1280) lost digits that ill-conditioned blocks (|W_i| ~ 1e4,
+// the Hermite Rijke's) amplified past the plain version's error.
 //
 // What bounds it: every launch streams the W/C blocks once, 2 * 2m * s^2
 // * 8 B = 126 MB at the Rijke slice (sides=2, m=60, s=256), about 38 us at
@@ -184,8 +189,12 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
     const int chunks = s / rows;                 // stages per step
     float2* ring = reinterpret_cast<float2*>(smem);          // [stages]
     float2* carry = ring + (size_t)stages * stage_elems;     // [2][s]
-    float2* part = carry + 2 * s;                            // [2][256]
-    uint64_t* full = reinterpret_cast<uint64_t*>(part + 2 * kConsumers);
+    // one buffer of partial sums: a step's reads of it end before the
+    // consumer barrier of its publish, which the next step that writes it
+    // follows (a step that does not publish is followed by a zero-carry
+    // step that does not write it)
+    double2* part = reinterpret_cast<double2*>(carry + 2 * s);  // [256]
+    uint64_t* full = reinterpret_cast<uint64_t*>(part + kConsumers);
     uint64_t* empty = full + stages;
     uint64_t* cbar = empty + stages;                         // [2]
 
@@ -252,11 +261,12 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
             const bool fwd = g < m;
             const int i = fwd ? g : g - m;
             const int slab = fwd ? i : m - 1 - i;
-            float2 rhs[kCols], sum[kCols];
+            float2 rhs[kCols];
+            double sr[kCols], si[kCols];             // the step's sums
 #pragma unroll
             for (int c = 0; c < kCols; ++c) {
-                sum[c] = make_float2(0.f, 0.f);
-                rhs[c] = sum[c];
+                sr[c] = si[c] = 0.0;
+                rhs[c] = make_float2(0.f, 0.f);
                 if (c < ncol) {                      // issued before the wait
                     const size_t e = (size_t)slab * s + c * kConsumers;
                     rhs[c] = fwd ? brhs[e] : xs[e];
@@ -267,16 +277,16 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
                 const float2* prev = carry + (used & 1) * s;
                 mbar_wait_cluster(cbar + (used & 1), (used >> 1) & 1);
                 ++used;
-                float ar[kCols], ai[kCols];
-#pragma unroll
-                for (int c = 0; c < kCols; ++c)
-                    ar[c] = ai[c] = 0.f;
                 for (int q = 0; q < chunks; ++q, ++n) {
                     const int st = n % stages;
                     mbar_wait(full + st, (n / stages) & 1);
                     if (ks < ks_count) {
                         const float2* B = ring + (size_t)st * stage_elems;
                         const float2* u = prev + q * rows;
+                        float ar[kCols], ai[kCols];  // this chunk's sums
+#pragma unroll
+                        for (int c = 0; c < kCols; ++c)
+                            ar[c] = ai[c] = 0.f;
 #pragma unroll 4
                         for (int k = ks; k < rows; k += ks_count) {
                             const float2 a = u[k];
@@ -290,24 +300,26 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
                                                  fmaf(a.y, b.x, ai[c]));
                                 }
                         }
+#pragma unroll
+                        for (int c = 0; c < kCols; ++c) {
+                            sr[c] += ar[c];
+                            si[c] += ai[c];
+                        }
                     }
                     __syncwarp();
                     if ((tid & 31) == 0)
                         mbar_arrive(empty + st);
                 }
                 if (!kWide) {
-                    float2* pp = part + (g & 1) * kConsumers;
-                    pp[tid] = make_float2(ar[0], ai[0]);
+                    part[tid] = make_double2(sr[0], si[0]);
                     consumer_sync();
-                    if (tid < w)
+                    if (tid < w) {
+                        sr[0] = si[0] = 0.0;
                         for (int t = 0; t < ks_count; ++t) {
-                            sum[0].x += pp[t * w + jt].x;
-                            sum[0].y += pp[t * w + jt].y;
+                            sr[0] += part[t * w + jt].x;
+                            si[0] += part[t * w + jt].y;
                         }
-                } else {
-#pragma unroll
-                    for (int c = 0; c < kCols; ++c)
-                        sum[c] = make_float2(ar[c], ai[c]);
+                    }
                 }
             }
             const bool publish = (g + 1) % m != 0;   // the next step's carry
@@ -316,8 +328,9 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
                 for (int c = 0; c < kCols; ++c)
                     if (c < ncol) {
                         const int jc = c * kConsumers;
-                        const float2 y = make_float2(rhs[c].x - sum[c].x,
-                                                     rhs[c].y - sum[c].y);
+                        const float2 y = make_float2(
+                            (float)(rhs[c].x - sr[c]),
+                            (float)(rhs[c].y - si[c]));
                         xs[(size_t)slab * s + jc] = y;
                         if (publish) {
                             const float2* next =
@@ -344,7 +357,7 @@ slab_thomas_kernel(const __grid_constant__ CUtensorMap map,
 size_t smem_bytes(int s, int rows, int stages)
 {
     return (size_t)stages * rows * (s / kCluster) * sizeof(float2)
-        + (2 * (size_t)s + 2 * kConsumers) * sizeof(float2)
+        + 2 * (size_t)s * sizeof(float2) + kConsumers * sizeof(double2)
         + (2 * (size_t)stages + 2) * sizeof(uint64_t);
 }
 

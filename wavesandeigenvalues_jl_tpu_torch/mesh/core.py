@@ -1,8 +1,7 @@
 """Tetrahedral mesh core.
 
-Host numpy, copied from the JAX package's ``mesh/core.py`` (without the
-domain colouring, see ROADMAP.md Queue 1).  Counterpart of the
-reference's Meshutils module (Mesh and SymInfo types,
+Host numpy, copied from the JAX package's ``mesh/core.py``.  Counterpart
+of the reference's Meshutils module (Mesh and SymInfo types,
 src/Meshutils.jl:28-82) re-designed around *vectorized* canonical simplex
 indexing: where the reference maintains lexicographically ordered lists
 with O(log n) per-element binary-search insertion (src/Mesh/sorter.jl),
@@ -271,6 +270,24 @@ class Mesh:
         dd["size"] = size
         return size
 
+    # -- domain operations (Meshutils.jl:818-882) ---------------------------
+    def unify(self, new: str, *doms: str):
+        """Merge domains of equal dimension into a new named domain
+        (unify!, Meshutils.jl:849-882)."""
+        dim = self.domains[doms[0]]["dimension"]
+        idx = []
+        for d in doms:
+            if self.domains[d]["dimension"] != dim:
+                raise ValueError("domains have mixed dimension")
+            idx.append(np.asarray(self.domains[d]["simplices"]))
+        self.domains[new] = {"dimension": dim,
+                             "simplices": np.unique(np.concatenate(idx))}
+
+    def keep(self, *doms: str):
+        """Drop all domains except the given ones (keep!,
+        Meshutils.jl:818-830)."""
+        self.domains = {d: self.domains[d] for d in doms}
+
     # -- queries ------------------------------------------------------------
     def barycentric(self, x: np.ndarray, tets=None):
         """Barycentric coordinates of point x in every tetrahedron [nt, 4]."""
@@ -312,6 +329,95 @@ class Mesh:
         except Exception:
             return np.array([fn(*p) for p in pts.T], dtype=np.float64)
 
+    def get_surface_points(self, domains=None):
+        """Unique point indices on the surface (optionally restricted to
+        named 2-D domains) (get_surface_points, Meshutils.jl:884-968)."""
+        if domains is None:
+            tris = self.triangles
+        else:
+            idx = np.unique(np.concatenate([
+                np.asarray(self.domains[d]["simplices"]) for d in domains]))
+            tris = self.triangles[idx]
+        return np.unique(tris)
+
+    def get_normal_vectors(self, domains=None):
+        """Area-weighted outward point normals on the surface
+        (get_normal_vectors, Meshutils.jl:1030-1069).  Returns [3, N] with
+        zeros off-surface; normals are normalized at surface points."""
+        if self.tri2tet is None:
+            self.link_triangles_to_tetrahedra()
+        if domains is None:
+            tri_idx = np.arange(len(self.triangles))
+        else:
+            tri_idx = np.unique(np.concatenate([
+                np.asarray(self.domains[d]["simplices"]) for d in domains]))
+        tris = self.triangles[tri_idx]
+        p = self.points
+        a = p[:, tris[:, 1]] - p[:, tris[:, 0]]
+        b = p[:, tris[:, 2]] - p[:, tris[:, 0]]
+        n = np.cross(a.T, b.T)  # [nt, 3], area-weighted (2A)
+        # orient outward: away from the owning tet's opposite vertex
+        own = self.tri2tet[tri_idx]
+        tet = self.tetrahedra[own]
+        # centroid of owning tet
+        cen = p[:, tet].mean(axis=2).T  # [nt, 3]
+        mid = p[:, tris].mean(axis=2).T
+        flip = np.einsum("ij,ij->i", n, mid - cen) < 0
+        n[flip] *= -1
+        normals = np.zeros((3, self.n_points))
+        for k in range(3):
+            np.add.at(normals[k], tris[:, 0], n[:, k])
+            np.add.at(normals[k], tris[:, 1], n[:, k])
+            np.add.at(normals[k], tris[:, 2], n[:, k])
+        pts = np.unique(tris)
+        nrm = np.linalg.norm(normals[:, pts], axis=0)
+        nrm[nrm == 0] = 1.0
+        normals[:, pts] /= nrm
+        return normals
+
+
+def color_domains(mesh: Mesh, domains=()):
+    """Integer color fields per domain for visualization
+    (color_domains, Meshutils.jl:1139-1190).
+
+    Returns (data, surf_keys, vol_keys): ``data`` maps each domain name to
+    a per-cell integer field (triangles for 2-D domains, tets for 3-D),
+    plus '__all_surfaces__' / '__all_volumes__' combined colorings;
+    ``surf_keys``/``vol_keys`` map the domain names to their color index."""
+    n_tri = len(mesh.triangles)
+    n_tet = len(mesh.tetrahedra)
+    tri_color = np.zeros(n_tri, dtype=np.int64)
+    tet_color = np.zeros(n_tet, dtype=np.int64)
+    data, surf_keys, vol_keys = {}, {}, {}
+    if not domains:
+        domains = sorted(mesh.domains.keys())
+    surf_idx = vol_idx = 0
+    for key in domains:
+        if key not in mesh.domains:
+            print(f"Warning: No domain named '{key}' in mesh.")
+            continue
+        dom = mesh.domains[key]
+        smplcs = np.asarray(dom["simplices"], dtype=np.int64)
+        if dom["dimension"] == 2:
+            surf_idx += 1
+            if np.any(tri_color[smplcs] != 0):
+                print(f"domain {key} is overlapping")
+            tri_color[smplcs] = surf_idx
+            data[key] = np.zeros(n_tri, dtype=np.int64)
+            data[key][smplcs] = surf_idx
+            surf_keys[key] = surf_idx
+        elif dom["dimension"] == 3:
+            vol_idx += 1
+            if np.any(tet_color[smplcs] != 0):
+                print(f"domain {key} is overlapping")
+            tet_color[smplcs] = vol_idx
+            data[key] = np.zeros(n_tet, dtype=np.int64)
+            data[key][smplcs] = vol_idx
+            vol_keys[key] = vol_idx
+    data["__all_surfaces__"] = tri_color
+    data["__all_volumes__"] = tet_color
+    return data, surf_keys, vol_keys
+
 
 __all__ = ["Mesh", "SymInfo", "unique_simplices", "find_simplices",
-           "simplex_keys"]
+           "simplex_keys", "color_domains"]

@@ -1,8 +1,7 @@
 """Parameterized operator families  L(p) = Σ_k f_k(p)·A_k.
 
-Host numpy, copied from the JAX package's ``nlevp/family.py`` (the
-Galerkin ``project`` and the npz writer are not ported yet; the loader is
-:func:`.persist.load_family`).  Re-design of the reference's ``Term`` /
+Host numpy, copied from the JAX package's ``nlevp/family.py`` (the npz
+container is :mod:`.persist`).  Re-design of the reference's ``Term`` /
 ``LinearOperatorFamily`` / ``Solution`` types
 (src/NLEVP/LinOpFam.jl:16-138).  The user-facing semantics match the
 reference:
@@ -18,6 +17,7 @@ coefficient contraction + a single structured matrix with static shapes.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -251,6 +251,10 @@ class OperatorFamily:
 
     # -- persistence (npz/json, replacing the eval-based TOML of
     #    LinOpFam.jl:196-294 / toml.jl) ------------------------------------
+    def save(self, fname: str):
+        from .persist import save_family
+        save_family(fname, self)
+
     @classmethod
     def load(cls, fname: str) -> "OperatorFamily":
         from .persist import load_family
@@ -284,4 +288,21 @@ class OperatorFamily:
         self.auxval = "__aux__"
 
 
-__all__ = ["Term", "Solution", "OperatorFamily", "AUX_OPERATOR"]
+def project(L: OperatorFamily, Q: np.ndarray) -> OperatorFamily:
+    """Galerkin projection P(z)=Q'L(z)Q of a family onto a subspace
+    (project, beyn.jl:580-595)."""
+    P = OperatorFamily(["λ"])
+    P.params = copy.deepcopy(L.params)
+    P.eigval, P.auxval = L.eigval, L.auxval
+    P.active = list(L.active)
+    P.mode = L.mode
+    P.terms = []
+    if "λ" not in L.params:
+        P.params.pop("λ", None)
+    for t in L.terms:
+        M = Q.conj().T @ (t.coeff @ Q)
+        P.push(Term(M, t.funcs, t.params, t.symbol, t.operator))
+    return P
+
+
+__all__ = ["Term", "Solution", "OperatorFamily", "project", "AUX_OPERATOR"]

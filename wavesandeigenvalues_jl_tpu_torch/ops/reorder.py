@@ -1,10 +1,13 @@
-"""Bandwidth-reducing row reordering (Cuthill–McKee), host numpy, copied
-from the JAX package's ``ops/reorder.py``.
+"""Bandwidth-reducing row reordering (Cuthill–McKee), copied from the JAX
+package's ``ops/reorder.py``.
 
-Reordering fills the dense blocks of the BSR layout (:mod:`.device`).  The
-JAX function tries a native C++ BFS first; that library is not ported yet
-(ROADMAP.md), so the port always takes the numpy/deque path, which is the
-JAX package's own fallback and gives the same permutation as it.
+Reordering fills the dense blocks of the BSR layout (:mod:`.device`).  As
+in the JAX package, the reverse ordering is the native C++ BFS
+(:func:`..native.rcm`, built from the same source), so it gives the JAX
+package's permutation.  The numpy/deque BFS (:func:`cuthill_mckee_numpy`,
+the JAX package's fallback) orders equal-degree neighbours differently;
+it serves the forward ordering and is the plain version the tests hold
+the native one against.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from collections import deque
 
 import numpy as np
 
+from .. import native
 from .sparse import CSR
 
 
@@ -33,9 +37,18 @@ def adjacency_from_csr(A: CSR):
 
 
 def cuthill_mckee(A: CSR, reverse: bool = True) -> np.ndarray:
-    """Permutation ``perm`` (new→old) reducing the bandwidth of A."""
-    n = A.shape[0]
+    """Permutation ``perm`` (new→old) reducing the bandwidth of A: the
+    native reverse Cuthill–McKee, or the numpy forward ordering."""
     indptr, nbrs = adjacency_from_csr(A)
+    if reverse:
+        return native.rcm(indptr, nbrs)
+    return cuthill_mckee_numpy(indptr, nbrs, reverse=False)
+
+
+def cuthill_mckee_numpy(indptr, nbrs, reverse: bool = True) -> np.ndarray:
+    """Cuthill–McKee on a symmetric adjacency (``adjacency_from_csr``) by
+    a numpy/deque BFS: the JAX package's fallback path."""
+    n = len(indptr) - 1
     degree = np.diff(indptr)
     visited = np.zeros(n, bool)
     perm = np.empty(n, np.int64)
@@ -76,4 +89,5 @@ def bandwidth(A: CSR) -> int:
     return int(np.abs(rows - A.indices).max())
 
 
-__all__ = ["cuthill_mckee", "permute_csr", "bandwidth", "adjacency_from_csr"]
+__all__ = ["cuthill_mckee", "cuthill_mckee_numpy", "permute_csr", "bandwidth",
+           "adjacency_from_csr"]

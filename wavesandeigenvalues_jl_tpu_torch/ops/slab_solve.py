@@ -24,7 +24,7 @@ refinement re-solve is matmuls and band gathers only.  Rows are
 equilibrated per shift (1/max|row|) on the host in complex128 before the
 cast: the penalty rows (admittance Y≈1e15) otherwise destroy the complex64
 factorization.  Residuals and the acceptance norm are exact complex128 on
-the host.
+the host (the product L(z)·X in the native multithreaded CSR SpMM).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from .reorder import adjacency_from_csr
 from .sparse import CSR
 
@@ -359,8 +360,9 @@ class SlabSolver:
         self.refine_sweeps, self.refine_tol = refine_sweeps, refine_tol
         self.device = torch.device(device)
         self._sp = sp
-        self._indptr = np.asarray(S.indptr)
+        self._indptr = np.asarray(S.indptr, np.int64)
         self._indices = np.asarray(S.indices)
+        self._indices64 = self._indices.astype(np.int64)
         self._values128 = np.asarray(S.values, np.complex128)
         rows = np.asarray(S.row_ids(), np.int64)
         self._rows = rows
@@ -415,19 +417,19 @@ class SlabSolver:
         """Natural shift-group size for contour drivers (one chunk)."""
         return self._chunk or auto_chunk(self.part)
 
-    def _equilibrate(self, coeffs):
-        """Per-shift row scalings 1/max|row| of L(z) ([B, n]) and the
-        scaled values ([B, nnz+1], sentinel 0 appended)."""
-        B = coeffs.shape[0]
-        data = coeffs @ self._values128                    # [B, nnz]
+    def _equilibrate(self, data):
+        """Per-shift row scalings 1/max|row| of L(z) ([B, n]) from its
+        values ``data`` [B, nnz], and the scaled values ([B, nnz+1],
+        sentinel 0 appended)."""
+        B = data.shape[0]
         absd = np.abs(data)
         srow = np.empty((B, self.n))
         seg = np.maximum.reduceat(absd, self._indptr[:-1], axis=1)
         empty = np.diff(self._indptr) == 0
         seg[:, empty] = 1.0
         srow[:] = 1.0 / np.where(seg == 0, 1.0, seg)
-        data *= srow[:, self._rows]
-        dpad = np.concatenate([data, np.zeros((B, 1), data.dtype)], axis=1)
+        dpad = np.concatenate([data * srow[:, self._rows],
+                               np.zeros((B, 1), data.dtype)], axis=1)
         return srow, dpad
 
     def _to_device(self, x):
@@ -470,20 +472,20 @@ class SlabSolver:
     # -- public API --------------------------------------------------------
 
     def _prep_chunk(self, c, b):
-        """Host-side chunk preparation: residual CSR matrices, row
+        """Host-side chunk preparation: residual CSR values, row
         equilibration, scaled RHS.  Runs on a worker thread (numpy and
         scipy only, never torch) so chunk k+1's prep overlaps chunk k's
         device factorization."""
         t0 = time.perf_counter()
         chunk = len(c)
         l = b.shape[2]
-        mats = [self._host_csr(c[j]) for j in range(chunk)]
-        srow, dpad = self._equilibrate(c)
+        data = c @ self._values128                       # [B, nnz]
+        srow, dpad = self._equilibrate(data)
         bsc = np.zeros((chunk, self.n + 1, l), np.complex128)
         bsc[:, :self.n] = b * srow[:, :, None]
         bnorm = np.linalg.norm(bsc, axis=1)              # [B, l] scaled
         bnorm = np.where(bnorm == 0, 1.0, bnorm)
-        return {"mats": mats, "srow": srow, "dpad": dpad, "bsc": bsc,
+        return {"data": data, "srow": srow, "dpad": dpad, "bsc": bsc,
                 "bnorm": bnorm, "b": b,
                 "prep_s": time.perf_counter() - t0}
 
@@ -546,9 +548,12 @@ class SlabSolver:
         return X, info
 
     def _residual(self, P, j, Xj):
-        """Exact complex128 equilibrated residual [n+1, l] of shift j."""
+        """Exact complex128 equilibrated residual [n+1, l] of shift j; the
+        product L(z_j)·X_j in the native multithreaded CSR SpMM, as the
+        JAX package's ``_resid_matvec``."""
         R = np.zeros((self.n + 1, Xj.shape[1]), np.complex128)
-        R[:self.n] = (P["b"][j] - P["mats"][j] @ Xj) * P["srow"][j][:, None]
+        LX = native.csr_spmm(self._indptr, self._indices64, P["data"][j], Xj)
+        R[:self.n] = (P["b"][j] - LX) * P["srow"][j][:, None]
         return R
 
     def _solve_chunks(self, bounds, chunk_inputs, fut, pool, X, relres, l,

@@ -1,8 +1,10 @@
 """Host-side sparse containers and the stacked-operator layout.
 
-Host numpy, copied from the JAX package's ``ops/sparse.py``.  The optional
-native C++ duplicate-summing kernel there (``native/``) is not ported yet
-(ROADMAP.md Queue 1); the numpy path below is the one both packages share.
+Host numpy, copied from the JAX package's ``ops/sparse.py``.  As there,
+large assemblies sum their duplicates in the native C++ kernel
+(:func:`..native.coo_dedup`, from the same source); the numpy path
+(:func:`coo_sum_duplicates_numpy`) serves the rest and is its plain
+version.
 
 The reference stores each term of an operator family as its own
 ``SparseMatrixCSC`` and evaluates ``L(z) = Σ_k c_k(z)·A_k`` by summing k
@@ -20,6 +22,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils.config import CDTYPE, IDTYPE
 
 
@@ -27,8 +30,23 @@ from ..utils.config import CDTYPE, IDTYPE
 # COO helpers
 
 
+#: entry count from which the duplicates are summed natively (JAX's gate)
+NATIVE_DEDUP_MIN = 1 << 15
+
+
 def coo_sum_duplicates(rows, cols, vals, shape):
-    """Sum duplicate (i,j) entries; drop exact zeros. Returns sorted COO."""
+    """Sum duplicate (i,j) entries; drop exact zeros. Returns sorted COO.
+
+    The native C++ kernel (:func:`..native.coo_dedup`) takes assemblies of
+    ``NATIVE_DEDUP_MIN`` entries or more, as in the JAX package."""
+    if np.size(rows) >= NATIVE_DEDUP_MIN:
+        r, c, v = native.coo_dedup(rows, cols, vals, n_cols=int(shape[1]))
+        return r.astype(IDTYPE), c.astype(IDTYPE), v
+    return coo_sum_duplicates_numpy(rows, cols, vals, shape)
+
+
+def coo_sum_duplicates_numpy(rows, cols, vals, shape):
+    """The numpy sort/reduceat version of :func:`coo_sum_duplicates`."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     vals = np.asarray(vals, dtype=CDTYPE)
@@ -183,6 +201,9 @@ class StackedOperator:
         data = np.asarray(coeffs, dtype=CDTYPE) @ self.values
         return CSR(self.indptr, self.indices, data, self.shape)
 
+    def assemble_dense(self, coeffs) -> np.ndarray:
+        return self.assemble(coeffs).to_dense()
+
     def row_ids(self) -> np.ndarray:
         return np.repeat(np.arange(self.shape[0], dtype=IDTYPE),
                          np.diff(self.indptr))
@@ -214,5 +235,5 @@ def csr_to_ell(indptr, indices, n_cols: int, width: int | None = None):
     return cols, gather, mask
 
 
-__all__ = ["CSR", "StackedOperator", "coo_sum_duplicates", "union_pattern",
-           "csr_to_ell"]
+__all__ = ["CSR", "StackedOperator", "coo_sum_duplicates",
+           "coo_sum_duplicates_numpy", "union_pattern", "csr_to_ell"]
