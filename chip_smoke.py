@@ -72,7 +72,17 @@ their real size, each with the launch counters set to 0 just before it:
   apply through K1 on each family); J4 J1's v2.2 mesh solved under
   ``start_device_trace``/``stop_device_trace``, K3's launches counted in
   the Chrome trace.  Against pinned JAX host values and the slab path;
-  K3 held against its plain version on J1's first and last inputs.
+  K3 held against its plain version on J1's first and last inputs;
+* path K, the distributed layer (``parallel/``, plain PyTorch and
+  torch.distributed, no kernel): K0 ``init_multihost`` on NCCL, a
+  one-rank world (one GPU here), and a (1 × 1) ("shift", "row")
+  DeviceMesh; K1 ``make_dist_spmm`` on path C's family and panel in 4 row
+  parts on the one rank (real halos between them) against the complex128
+  product and path C's Y, with ``make_dist_spmv`` and ``dist_dot``; K2
+  ``beyn_dist`` on path F's family and MultiGrid at the JAX package's
+  solver defaults against the pinned JAX host modes; K3 ``beyn_batched``
+  at 437 DOF on the mesh's shift axis against the unsharded dense
+  backend.  The process group is destroyed at the end.
 
 The build phase also compiles the port's host C++ library
 (``native/``, g++) beside the kernels.  Every phase prints one line and any failure exits non-zero.  The
@@ -347,6 +357,11 @@ FIT_NTAU_RTOL = 1e-3
 #: Mesh.from_raw's order) against the slab path's; a family reloaded from
 #: npz re-solved, and one reloaded from TOML applied, against the original
 J_SAME_RTOL, J_RELOAD_RTOL = 1e-12, 1e-14
+#: path K: the row parts of the sharded apply (K1) and contour (K2) on the
+#: one card; K1 against the complex128 CSR product, row-wise (the product
+#: is complex128 throughout); K3's sharded dense contour against the
+#: unsharded one, relative to |ω|
+K_ROW_PARTS, K1_ROW_RTOL, K3_DENSE_RTOL = 4, 1e-12, 1e-12
 #: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -961,7 +976,7 @@ def phase_large_path():
         launches, twin = c["window_spmm"]
         check(launches == 1 and twin == 0, f"large apply: window_spmm "
               f"launches {launches}, plain {twin}")
-    return counts, L, plan
+    return counts, L, plan, X, Y
 
 
 def _block_slots(indptr, cols, bs):
@@ -1485,7 +1500,7 @@ def phase_panel_path(card):
           "path F eigenvectors not finite")
     check(all(c == (0, 0) for c in counts.values()),
           f"path F launched a kernel or its plain version: {counts}")
-    return wall
+    return wall, L2, mg
 
 
 @contextlib.contextmanager
@@ -2588,6 +2603,199 @@ def phase_io_path(card, L7259, om_slab):
     return {"J": (total, record)}
 
 
+def phase_dist_path(card, large, panel):
+    """Path K: the distributed layer (``parallel/``) on the card, with the
+    counters set to 0 just before it and read just after (plain PyTorch
+    and collectives: no kernel of the port runs here, so they must read
+    0).  K0: ``init_multihost`` on NCCL, a one-rank world (the card's
+    machine has one GPU and NCCL takes one rank a GPU), a (1 × 1)
+    ("shift", "row") DeviceMesh and one NCCL all_reduce.  K1: path C's
+    57,210-DOF family at OMEGA_APPLY, row-partitioned into K_ROW_PARTS
+    parts on the one rank (halos between them real), ``make_dist_spmm``
+    on path C's 128-column panel against the complex128 CSR product
+    (row-wise ≤ K1_ROW_RTOL) and path C's window-kernel Y (global ≤
+    LARGE_GLOBAL_RTOL); one ``make_dist_spmv`` vector and ``dist_dot``.
+    K2: ``beyn_dist`` on path F's 55,401-DOF family and MultiGrid at the
+    JAX package's solver defaults (bs 32, tol 1e-10, GMRES(80), 40
+    restarts), one mesh-wide solve a node, against OMEGA_55K.  K3:
+    ``beyn_batched`` on the 437-DOF passive family with the shift axis
+    given, against the unsharded "dense" backend (≤ K3_DENSE_RTOL·|ω|)
+    and OMEGA_437_PASSIVE.  The process group is destroyed at the end."""
+    import socket
+
+    import scipy.sparse as sp
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from wavesandeigenvalues_jl_tpu_torch.mesh.generate import rijke_mesh
+    from wavesandeigenvalues_jl_tpu_torch.models import discretize
+    from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
+        passive_rijke_setup
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import beyn
+    from wavesandeigenvalues_jl_tpu_torch.parallel import (
+        beyn_batched, beyn_dist, dist_dot, init_multihost, make_dist_spmm,
+        make_dist_spmv, partition_stack)
+    from wavesandeigenvalues_jl_tpu_torch.parallel.scaling import \
+        gmres_comm_accounting
+    fmt = lambda xs: "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"  # noqa
+    t_path = time.perf_counter()
+    reset_counts()
+
+    # K0: the one-rank NCCL world and its mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    multi = init_multihost(coordinator=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, timeout=300)
+    try:
+        check(dist.is_initialized() and not multi, "K0: no one-rank world")
+        backend = dist.get_backend()
+        check(backend == "nccl", f"K0: backend {backend}, not nccl")
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("shift", "row"))
+        t = torch.full((8,), 1 + 2j, dtype=torch.complex128, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        check(bool((t == 1 + 2j).all()), f"K0: all_reduce gave {t}")
+        print(f"main path K0 (world) on {card}: backend {backend}, world "
+              f"size {dist.get_world_size()}, NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}, mesh "
+              f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on "
+              f"{mesh.device_type}, store tcp://127.0.0.1:{port} | "
+              f"init + mesh + one all_reduce {time.perf_counter() - t0:.3f} "
+              "s", flush=True)
+
+        # K1: the row-sharded apply of path C's family and panel
+        L, X, Y_window = large
+        L.params[L.eigval] = OMEGA_APPLY
+        coeffs = L.coefficients({})
+        A = L.assemble({})
+        As = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
+        t0 = time.perf_counter()
+        part = partition_stack(L._stack(), K_ROW_PARTS)
+        part_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spmm, shard, unshard = make_dist_spmm(part, mesh)
+        Xs = shard(X)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Ys = spmm(Xs, coeffs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        Y = unshard(Ys)
+        row, glob = _rowwise_scipy(Y, As, X)
+        vs_window = float(np.linalg.norm(Y - Y_window)
+                          / np.linalg.norm(Y_window))
+        spmv, vshard, vunshard = make_dist_spmv(part, mesh)
+        x = X[:, 0].astype(np.complex128)
+        ys = spmv(vshard(x), coeffs)
+        y_row, _ = _rowwise_scipy(vunshard(ys)[:, None], As, x[:, None])
+        y_ref = As @ x
+        dot = complex(dist_dot(vshard(x), ys, mesh))
+        dot_ref = np.vdot(x, y_ref)
+        dot_rel = abs(dot - dot_ref) / abs(dot_ref)
+        hops = -(-part.halo // part.m)
+        print(f"main path K1 (row-sharded apply) on {card}: n={L.size} "
+              f"r={X.shape[1]}, {K_ROW_PARTS} row parts of m={part.m} on "
+              f"rank 0, halo H={part.halo} rows ({hops} hop(s) a side, "
+              f"ELL width {part.cols.shape[2]}), partition_stack "
+              f"{part_s:.2f} s | make_dist_spmm wall first call "
+              f"{walls[0]:.4f} s, next {walls[1]:.4f} s | max "
+              f"|Y−Y_ref|/(|A||X|) {row:.3e} (tol {K1_ROW_RTOL:.0e}), "
+              f"‖Y−Y_ref‖/‖Y_ref‖ {glob:.3e}, against path C's window "
+              f"kernel {vs_window:.3e} (tol {LARGE_GLOBAL_RTOL:.0e}) | "
+              f"make_dist_spmv row-wise {y_row:.3e}, dist_dot rel "
+              f"{dot_rel:.3e} | peak device memory {peak / 2**20:.1f} MiB",
+              flush=True)
+        check(Y.shape == X.shape and np.isfinite(Y).all(), "K1: bad Y")
+        check(row <= K1_ROW_RTOL, f"K1: row-wise error {row:.3e}")
+        check(vs_window < LARGE_GLOBAL_RTOL,
+              f"K1: off path C's window kernel by {vs_window:.3e}")
+        check(y_row <= K1_ROW_RTOL, f"K1: spmv row-wise error {y_row:.3e}")
+        check(dot_rel <= K1_ROW_RTOL, f"K1: dist_dot off by {dot_rel:.3e}")
+        del Xs, Ys, spmm, spmv, ys
+
+        # K2: the row-sharded contour on path F's family
+        L2, mg = panel
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Om, P, info = beyn_dist(L2, CONTOUR, mesh, K_ROW_PARTS, coarse=mg,
+                                return_info=True, **CONTOUR_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        f, f_ref = _hz(Om), _hz(OMEGA_55K)
+        rel = (np.abs(f - f_ref) / f_ref if len(f) == len(f_ref)
+               else np.full(len(f_ref), np.inf))
+        tm = info["timings"]
+        acc = gmres_comm_accounting(L2.size, K_ROW_PARTS, info["halo"],
+                                    CONTOUR_KW["l"], 80, 40)
+        print(f"main path K2 (row-sharded contour) on {card}: n={L2.size}, "
+              f"{K_ROW_PARTS} row parts of m={info['m']}, halo "
+              f"{info['halo']} rows, MultiGrid levels n={mg.levels[0][5]} "
+              f"and n={mg.n_coarse} | {4 * CONTOUR_KW['N']} nodes x "
+              f"l={CONTOUR_KW['l']} in {info['solves']} mesh-wide solves "
+              f"(bs 32, tol 1e-10, GMRES(80), 40 restarts) | modes Hz "
+              f"{', '.join(f'{x:.8f}' for x in f)} rel err {fmt(rel)} (tol "
+              f"{CONTOUR_RTOL:.0e}) | eigenpair residuals "
+              f"{fmt(info['residuals'])} | max preconditioned relres "
+              f"{info['max_res']:.3e} | wall {wall:.3f} s (solves "
+              f"{info['seconds']:.3f} s: host prep {tm['prep_s']:.3f}, "
+              f"GMRES {tm['gmres_s']:.3f}, gathers {tm['gather_s']:.3f}; "
+              f"{tm['restarts']} GMRES cycles summed over the columns of "
+              f"{tm['solves']} solves) | peak device memory "
+              f"{peak / 2**20:.1f} MiB | comm accounting {json.dumps(acc)}",
+              flush=True)
+        check(len(Om) == len(OMEGA_55K),
+              f"K2 found {len(Om)} modes, JAX host {len(OMEGA_55K)}")
+        check(rel.max() <= CONTOUR_RTOL, f"K2 modes off by {rel.max():.3e}")
+        check(P.shape == (L2.size, len(Om)) and np.isfinite(P).all(),
+              "K2 eigenvectors not finite")
+
+        # K3: the shift-split dense contour at 437 DOF
+        m437 = rijke_mesh(n_rings=2, nz_cold=10, nz_hot=10)
+        L3 = discretize(m437, *passive_rijke_setup(m437))
+        t0 = time.perf_counter()
+        Om3, P3 = beyn_batched(L3, CONTOUR, mesh=mesh, axis="shift",
+                               **CONTOUR_KW)
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
+        Om_d, _ = beyn(L3, CONTOUR, backend="dense", **CONTOUR_KW)
+        Om3, Om_d = np.sort_complex(Om3), np.sort_complex(Om_d)
+        same = (np.abs(Om3 - Om_d) / np.abs(Om_d)
+                if len(Om3) == len(Om_d) else np.full(len(Om_d), np.inf))
+        f3 = _hz(Om3)
+        hz = (np.abs(f3 - _hz(OMEGA_437_PASSIVE)).max()
+              if len(f3) == len(OMEGA_437_PASSIVE) else np.inf)
+        print(f"main path K3 (shift-split dense contour) on {card}: "
+              f"n={L3.size}, {4 * CONTOUR_KW['N']} nodes over the shift "
+              f"axis of {mesh.shape[0]} rank(s), moments summed by "
+              f"all_reduce | modes Hz {', '.join(f'{x:.8f}' for x in f3)} | "
+              f"against the unsharded dense backend {fmt(same)} x |ω| (tol "
+              f"{K3_DENSE_RTOL:.0e}), against JAX host max |Δf| {hz:.3e} Hz "
+              f"(tol {SMALL_HZ_ATOL:.0e}) | wall {wall3:.3f} s", flush=True)
+        check(same.max() <= K3_DENSE_RTOL,
+              f"K3 off the unsharded contour by {same.max():.3e}")
+        check(hz <= SMALL_HZ_ATOL, f"K3 modes off JAX host by {hz:.3e} Hz")
+        check(np.isfinite(P3).all(), "K3 eigenvectors not finite")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    counts = read_counts()
+    check(not dist.is_initialized(), "path K left its process group")
+    print(f"main path K (distributed layer) on {card}: K0–K3 passed in "
+          f"{time.perf_counter() - t_path:.2f} s, process group destroyed "
+          f"| launches, plain calls {counts}", flush=True)
+    check(all(c == (0, 0) for c in counts.values()),
+          f"path K launched a kernel or its plain version: {counts}")
+
+
 def main():
     from wavesandeigenvalues_jl_tpu_torch.models.rijke import \
         active_rijke_family
@@ -2608,16 +2816,17 @@ def main():
     apply_counts, A = phase_apply_path(L7259)
     k1 = phase_compare_k1(A)
     t0 = time.perf_counter()
-    large_counts, L57k, plan = phase_large_path()
+    large_counts, L57k, plan, X57k, Y57k = phase_large_path()
     k45 = phase_compare_k45(L57k, plan, warp_row)
     t_d = time.perf_counter()
     phase_contour_path(L57k, card)
     phase_contour_small(card)
-    del L57k, plan
+    # path K applies the host family again; its device plan goes now
+    del L57k._window_plan, plan
     t_e = time.perf_counter()
     phase_general_engine(card, L7259)
     t_f = time.perf_counter()
-    phase_panel_path(card)
+    _, L55k, mg55k = phase_panel_path(card)
     t_g = time.perf_counter()
     param_counts, k3_g = phase_param_path(card)
     t_h = time.perf_counter()
@@ -2626,13 +2835,16 @@ def main():
     front = phase_frontends_path(card)
     t_j = time.perf_counter()
     front.update(phase_io_path(card, L7259, om_slab))
+    t_k = time.perf_counter()
+    phase_dist_path(card, (L57k, X57k, Y57k), (L55k, mg55k))
+    del L57k, X57k, Y57k, L55k, mg55k
     t_end = time.perf_counter()
     print(f"path C phases: {t_d - t0:.2f} s, path D phases: "
           f"{t_e - t_d:.2f} s, path E phases: {t_f - t_e:.2f} s, path F: "
           f"{t_g - t_f:.2f} s, path G: {t_h - t_g:.2f} s, path H: "
           f"{t_i - t_h:.2f} s, path I: {t_j - t_i:.2f} s, path J: "
-          f"{t_end - t_j:.2f} s of the run's {t_end - t_start:.2f} s",
-          flush=True)
+          f"{t_k - t_j:.2f} s, path K: {t_end - t_k:.2f} s of the run's "
+          f"{t_end - t_start:.2f} s", flush=True)
 
     launches_c = large_counts["window_spmm"][0]
     rows = [

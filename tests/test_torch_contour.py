@@ -225,10 +225,39 @@ def test_panel_routes_match_jax(families, host_pairs, jax_solve, route,
 
 
 def test_unported_routes_raise(families):
-    """What waits for a later slice raises NotImplementedError naming its
-    ROADMAP item, before any solve: the ``mesh=`` sharding (item 8)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    """The sharded contour is ported (tests/test_torch_parallel.py): a
+    ``mesh`` that is not a torch.distributed DeviceMesh is refused with
+    TypeError before any solve."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         beyn_batched(families[1], GAMMA, mesh=object(), device="cpu")
+
+
+def test_beyn_batched_shift_mesh_matches_unsharded(families, host_pairs,
+                                                   tmp_path):
+    """beyn_batched on a "shift" mesh (a one-rank gloo world) splits the
+    dense quadrature over the mesh and sums the moments with all_reduce:
+    the modes equal the unsharded "dense" backend's to 1e-12·|ω| and the
+    JAX host modes to 1e-6 Hz."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    Lt = families[1]
+    Om_d, _ = solvers.beyn(Lt, GAMMA, backend="dense", device="cpu",
+                           **BEYN_KW)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("shift",))
+        Om, P = beyn_batched(Lt, GAMMA, mesh=mesh, device="cpu", **BEYN_KW)
+    finally:
+        dist.destroy_process_group()
+    Om, Om_d = np.sort_complex(Om), np.sort_complex(Om_d)
+    assert len(Om) == len(Om_d) == 2 and np.isfinite(P).all()
+    assert np.all(np.abs(Om - Om_d) <= 1e-12 * np.abs(Om_d))
+    f, f_host = (np.sort(O.real) / 2 / np.pi for O in (Om, host_pairs[0]))
+    np.testing.assert_allclose(f, f_host, rtol=0, atol=1e-6)
 
 
 def test_beyn_qep_five_of_six(qep):

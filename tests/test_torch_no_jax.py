@@ -45,6 +45,13 @@ MODULES = [
     "wavesandeigenvalues_jl_tpu_torch.nlevp.bloch_sweep",
     "wavesandeigenvalues_jl_tpu_torch.parallel",
     "wavesandeigenvalues_jl_tpu_torch.parallel.dist_beyn",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.partition",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.mesh",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.dist_spmv",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.dist_solve",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.multihost",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.scaling",
+    "wavesandeigenvalues_jl_tpu_torch.parallel.dryrun",
     "wavesandeigenvalues_jl_tpu_torch.native",
     "wavesandeigenvalues_jl_tpu_torch.mesh.io",
     "wavesandeigenvalues_jl_tpu_torch.mesh.vtk",

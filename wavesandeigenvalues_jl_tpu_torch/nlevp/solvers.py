@@ -871,6 +871,19 @@ def beyn(L: OperatorFamily, Gamma, l=5, K=1, N=16, tol=0.0, rtol=0.0,
     A, info = _moments_backend(L, Gamma, V, K, N, backend, output=output,
                                checkpoint=checkpoint, device=device,
                                **solver_kw)
+    return beyn_tail(L, A, Gamma, tol, rtol, pos_test_flag, res_tol, output,
+                     return_residuals, return_info, info,
+                     verify=res_tol is not None or output or return_residuals)
+
+
+def beyn_tail(L: OperatorFamily, A, Gamma, tol, rtol, pos_test_flag,
+              res_tol, output, return_residuals, return_info, info,
+              verify=True):
+    """Beyn's host tail on the moment matrices ``A``: the Hankel SVD
+    (:func:`moments2eigs`), the inside test, and with ``verify`` the
+    eigenpair residuals (:func:`verify_eigenpairs`).  Returns (Om, P), then
+    the residuals if ``return_residuals`` and ``{**info, "sigma": the
+    Hankel singular values}`` if ``return_info``."""
     Om, P, S = moments2eigs(A, tol_sigma=tol, rtol_sigma=rtol,
                             return_sigma=True)
     if output:
@@ -878,7 +891,7 @@ def beyn(L: OperatorFamily, Gamma, l=5, K=1, N=16, tol=0.0, rtol=0.0,
     if pos_test_flag:
         Om, P = pos_test(Om, P, Gamma)
     res = None
-    if res_tol is not None or output or return_residuals:
+    if verify:
         Om, P, res = verify_eigenpairs(L, Om, P, res_tol=res_tol,
                                        output=output)
     out = (Om, P)

@@ -69,7 +69,8 @@ def gmres_impl(matvec: Callable, b: torch.Tensor,
                x0: Optional[torch.Tensor] = None, tol: float = 1e-8,
                restart: int = 40, max_restarts: int = 20,
                precond: Optional[Callable] = None,
-               stagnation: float = 0.9):
+               stagnation: float = 0.9,
+               reduce_fn: Optional[Callable] = None):
     """GMRES(``restart``) on the systems A_i x_i = b_i, the rows of ``b``
     ([k, n], or one system [n]), with an optional RIGHT preconditioner
     (solves A M⁻¹ u = b, x = M⁻¹ u).  ``matvec`` and ``precond`` map
@@ -83,7 +84,15 @@ def gmres_impl(matvec: Callable, b: torch.Tensor,
     ``stagnation``: a system stops restarting when a restart improves its
     residual by less than this factor (res ≥ stagnation·prev), for
     mixed-precision callers that recover accuracy by refinement; pass
-    ``float('inf')`` to run to ``tol`` or ``max_restarts``."""
+    ``float('inf')`` to run to ``tol`` or ``max_restarts``.
+
+    ``reduce_fn``: the sum across row shards of a tensor of partial sums
+    (None: the rows are whole).  With row-sharded systems every dot
+    product and norm goes through it (both CGS2 projections, β, ‖w‖ and
+    the convergence test), so the least-squares problem and every branch
+    on the residuals read only reduced values: each shard solves the same
+    small problem and takes the same decisions
+    (:mod:`..parallel.dist_solve`)."""
     single = b.dim() == 1
     if single:
         b = b.unsqueeze(0)
@@ -91,12 +100,22 @@ def gmres_impl(matvec: Callable, b: torch.Tensor,
     m = restart
     x = torch.zeros_like(b) if x0 is None else x0.reshape(k, n).clone()
     Minv = precond if precond is not None else (lambda v: v)
-    bnorm = torch.linalg.vector_norm(b, dim=1)
+    if reduce_fn is None:
+        reduce_ = lambda t: t                               # noqa: E731
+
+        def vnorm(v):
+            return torch.linalg.vector_norm(v, dim=1)
+    else:
+        reduce_ = reduce_fn
+
+        def vnorm(v):
+            return reduce_fn((v * v.conj()).real.sum(1)).sqrt()
+    bnorm = vnorm(b)
     bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
 
     def arnoldi_cycle(x):
         r = b - matvec(x)
-        beta = torch.linalg.vector_norm(r, dim=1)
+        beta = vnorm(r)
         V = b.new_zeros(k, m + 1, n)
         V[:, 0] = r / torch.where(beta == 0, torch.ones_like(beta),
                                   beta)[:, None]
@@ -106,11 +125,11 @@ def gmres_impl(matvec: Callable, b: torch.Tensor,
             # classical Gram-Schmidt with re-orthogonalization (CGS2):
             # one pass loses orthogonality like ε·κ² (JAX ops/gmres.py)
             Vj = V[:, :j + 1]
-            h1 = torch.einsum("kin,kn->ki", Vj.conj(), w)
+            h1 = reduce_(torch.einsum("kin,kn->ki", Vj.conj(), w))
             w = w - torch.einsum("ki,kin->kn", h1, Vj)
-            h2 = torch.einsum("kin,kn->ki", Vj.conj(), w)
+            h2 = reduce_(torch.einsum("kin,kn->ki", Vj.conj(), w))
             w = w - torch.einsum("ki,kin->kn", h2, Vj)
-            hn = torch.linalg.vector_norm(w, dim=1)
+            hn = vnorm(w)
             V[:, j + 1] = w / torch.where(hn == 0, torch.ones_like(hn),
                                           hn)[:, None]
             H[:, :j + 1, j] = h1 + h2
@@ -120,7 +139,7 @@ def gmres_impl(matvec: Callable, b: torch.Tensor,
         return x + Minv(torch.einsum("ki,kin->kn", y, V[:, :m]))
 
     def relres(x):
-        return torch.linalg.vector_norm(b - matvec(x), dim=1) / bnorm
+        return vnorm(b - matvec(x)) / bnorm
 
     res = relres(x)
     prev = torch.full_like(res, float("inf"))
