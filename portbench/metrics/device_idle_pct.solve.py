@@ -1,0 +1,9 @@
+"""device_idle_pct.solve: share of the traced local solves' wall in which
+no kernel, copy or set ran on the card (the union of the device
+operations' intervals).  Device trace."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
