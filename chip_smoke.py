@@ -489,20 +489,36 @@ def _max_err(fn, ref, what):
     return max((y - ref).abs().max().item() for y in outs), outs
 
 
-def _wrappers():
-    from wavesandeigenvalues_jl_tpu_torch.ops import (bsr_spmm, dense_gmres,
-                                                      slab_thomas, window_spmm)
-    return slab_thomas, dense_gmres, bsr_spmm, window_spmm
+#: the kernel wrappers whose launches and plain calls ``utils.timing``
+#: counts (``<kernel>.launches``, ``<kernel>.twin_calls``)
+KERNELS = ("slab_thomas", "dense_gmres", "bsr_spmm", "window_spmm")
+#: what read_counts() subtracts from the counters' totals
+_COUNT_BASE = {k: (0, 0) for k in KERNELS}
+
+
+def _count_totals():
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+    return {k: (timing.total(f"{k}.launches"),
+                timing.total(f"{k}.twin_calls")) for k in KERNELS}
 
 
 def reset_counts():
-    for fn in _wrappers():
-        fn.launches = 0
-        fn.twin_calls = 0
+    _COUNT_BASE.update(_count_totals())
 
 
 def read_counts():
-    return {fn.__name__: (fn.launches, fn.twin_calls) for fn in _wrappers()}
+    """{kernel: (launches, plain calls)} since the last reset_counts()."""
+    return {k: (a - _COUNT_BASE[k][0], b - _COUNT_BASE[k][1])
+            for k, (a, b) in _count_totals().items()}
+
+
+def reset_timing():
+    """``utils.timing.reset()``, the kernel counts of read_counts() running
+    on across it."""
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
+    counted = read_counts()
+    timing.reset()
+    _COUNT_BASE.update({k: (-a, -b) for k, (a, b) in counted.items()})
 
 
 def _compare_k3(st, b, label, exact=False):
@@ -726,7 +742,7 @@ def _run_mslp(L, label, expected_n, omega_ref, solver_cls, kernel):
 
     check(L.size == expected_n, f"family dimension {L.size}, expected "
           f"{expected_n}")
-    timing.reset()
+    reset_timing()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -939,7 +955,7 @@ def phase_large_path():
     X = random_panel(n, 128)
     As = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
 
-    timing.reset()
+    reset_timing()
     reset_counts()
     t0 = time.perf_counter()
     operator_apply(L, Z0, X, kernel="window")
@@ -1252,8 +1268,7 @@ def _report_sum(rep, name):
 def _engine_line(rep, steps, per="a step"):
     """The general engine's parts from a ``utils.timing`` report, each also
     over ``steps``."""
-    from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import \
-        TRANSFER_BYTES
+    from wavesandeigenvalues_jl_tpu_torch.utils import timing
     parts = [("factorizations", "device_solve.factor"),
              ("dual Arnoldi", "eigs.dual_arnoldi"),
              ("refined solves", "device_solve.refine"),
@@ -1265,7 +1280,8 @@ def _engine_line(rep, steps, per="a step"):
         calls, secs = _report_sum(rep, name)
         out.append(f"{what} {calls} in {secs:.3f} s ({calls / steps:.1f} "
                    f"{per}, {secs / steps:.3f} s {per})")
-    moved = {k: v / 2**20 for k, v in TRANSFER_BYTES.items()}
+    moved = {k: timing.total(f"device_solve.{k}_bytes") / 2**20
+             for k in ("to_device", "to_host")}
     return ("; ".join(out) + f" | host->device {moved['to_device']:.1f} MiB,"
             f" device->host {moved['to_host']:.1f} MiB")
 
@@ -1303,9 +1319,7 @@ def phase_general_engine(card, L7259):
     check(L.size == 4087, f"path E family dimension {L.size}")
 
     # E1: householder(order=3) through DeviceLU on the card
-    timing.reset()
-    for key in device_solve.TRANSFER_BYTES:
-        device_solve.TRANSFER_BYTES[key] = 0
+    reset_timing()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1331,9 +1345,7 @@ def phase_general_engine(card, L7259):
     check(np.isfinite(sol.v).all(), "E1: eigenvector not finite")
 
     # E2: perturbation theory from the converged eigentriple
-    timing.reset()
-    for key in device_solve.TRANSFER_BYTES:
-        device_solve.TRANSFER_BYTES[key] = 0
+    reset_timing()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     perturb(sol, L, "n", 16)
@@ -1375,7 +1387,7 @@ def phase_general_engine(card, L7259):
     L437 = active_rijke_family()
     prev = set_solve_backend("device_gmres")
     try:
-        timing.reset()
+        reset_timing()
         t0 = time.perf_counter()
         sol3, n3, flag3 = householder(L437, Z0, maxiter=12, tol=1e-9,
                                       order=2)
@@ -1548,7 +1560,7 @@ def phase_param_path(card):
     L = active_rijke_family(n_rings=4, nz_cold=32, nz_hot=32)
     check(L.size == 4087, f"path G family dimension {L.size}")
     with _kept_inputs(fused_slab, "slab_thomas") as k3_inputs:
-        timing.reset()
+        reset_timing()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1641,7 +1653,7 @@ def _fused_mslp(L, f0, label, solver_cls, kw=BLOCH_KW):
 
     from wavesandeigenvalues_jl_tpu_torch.nlevp import mslp
     from wavesandeigenvalues_jl_tpu_torch.utils import timing
-    timing.reset()
+    reset_timing()
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message="fused device step",
                                 category=RuntimeWarning)
@@ -1749,7 +1761,7 @@ def phase_bloch_path(card):
     check(Lf.size == 23520, f"path H full annulus n={Lf.size}")
     f1 = om[1] / 2 / np.pi
     with _kept_inputs(fused_slab, "slab_thomas") as k3_full:
-        timing.reset()
+        reset_timing()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1811,7 +1823,7 @@ def phase_bloch_path(card):
     del Lf, A
 
     # H4: the batched sweep on the card
-    timing.reset()
+    reset_timing()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2193,7 +2205,7 @@ def phase_shape_part(card):
     dscrp, c = active_rijke_setup(mesh)
     L = discretize(mesh, dscrp, c)
     check(L.size == 1369, f"I5 n={L.size}")
-    timing.reset()
+    reset_timing()
     reset_counts()
     t0 = time.perf_counter()
     sol, n_it, flag = householder(L, Z0, maxiter=20, tol=1e-11, order=2)
@@ -2228,7 +2240,7 @@ def phase_shape_part(card):
     prel = np.abs(picked - ref_picked).max() / np.abs(ref_picked).max()
     rels = (_rel(smax, SENS_MAX), _rel(sout, SENS_OUTLET_Z))
 
-    timing.reset()
+    reset_timing()
     reset_counts()
     t0 = time.perf_counter()
     fd = forward_finite_differences_shape_sensitivity(

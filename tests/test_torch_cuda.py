@@ -34,6 +34,14 @@ from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
     WindowSpmm, launch as window_launch, window_spmm, window_spmm_ref)
 from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import \
     build as window_build
+from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+
+def _counts(kernel):
+    """(launches, plain calls) of a kernel wrapper so far."""
+    return (timing.total(f"{kernel}.launches"),
+            timing.total(f"{kernel}.twin_calls"))
+
 
 pytestmark = pytest.mark.cuda
 
@@ -75,10 +83,10 @@ def test_kernel_matches_twin(cuda, sides, m, s):
 def _check_k3(st, b):
     """REPEATS launches of K3, each within 1e-5 relative of the plain
     version, and no plain call."""
-    launches, calls = slab_thomas.launches, slab_thomas.twin_calls
+    launches, calls = _counts("slab_thomas")
     xs = [slab_thomas(st, b) for _ in range(REPEATS)]
     torch.cuda.synchronize()
-    assert (slab_thomas.launches, slab_thomas.twin_calls) == \
+    assert _counts("slab_thomas") == \
         (launches + REPEATS, calls)
     ref = slab_thomas_ref(st, b)
     rel = max(((x - ref).abs().max() / ref.abs().max()).item() for x in xs)
@@ -102,14 +110,14 @@ def test_kernel_wide_slabs(cuda, sides, m, s):
 def test_slab_thomas_refuses(cuda):
     """K3's wrapper raises on s no multiple of 128 and on s above S_MAX,
     and launches nothing."""
-    launches = slab_thomas.launches
+    launches = timing.total("slab_thomas.launches")
     for s in (200, S_MAX + 128):
         st = torch.empty((1, 2, s, s), dtype=torch.complex64, device=cuda)
         b = torch.zeros((1, 1, s), dtype=torch.complex64, device=cuda)
         with pytest.raises(ValueError, match="multiple of 128"):
             slab_thomas(st, b)
         del st
-    assert slab_thomas.launches == launches
+    assert timing.total("slab_thomas.launches") == launches
 
 
 def test_step_on_card_matches_cpu(cuda):
@@ -136,13 +144,37 @@ def test_mslp_on_card(cuda):
     """The slab engine forced at n = 437 (below FUSED_MAX_DIM)."""
     L = active_rijke_family()
     L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, cuda))
-    launches, calls = slab_thomas.launches, slab_thomas.twin_calls
+    launches, calls = _counts("slab_thomas")
     sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
     om = sol.params[sol.eigval]
     assert flag == 0
     assert abs(om - OMEGA_437) <= 1e-8 * abs(OMEGA_437)
-    assert slab_thomas.launches > launches
-    assert slab_thomas.twin_calls == calls
+    assert timing.total("slab_thomas.launches") > launches
+    assert timing.total("slab_thomas.twin_calls") == calls
+
+
+def test_step_spans_on_card(cuda):
+    """The slab engine's device spans on the card: ``factor`` and ``solves``
+    hold stream times, positive and within their step's wall, and the
+    request counted K3's launches under (2, m, s), three a device step."""
+    L = active_rijke_family()
+    solver = FusedSlabPencilSolver(L, cuda)
+    L._fused_solver = (L._stack(), solver)
+    timing.reset()
+    _, _, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
+    spans = timing.spans()
+    root, = [s for s in spans if s.id == s.request]
+    assert flag == 0 and root.attrs["flag"] == 0
+    assert root.attrs["engine"] == "FusedSlabPencilSolver"
+    steps = {s.id: s for s in spans if s.path == "fused_local.device_step"}
+    assert len(steps) == root.attrs["device_steps"] >= 1
+    dev = [s for s in spans if s.name in ("factor", "solves")]
+    assert len(dev) == 2 * len(steps)
+    for s in dev:
+        assert 0 < s.device_ms <= steps[s.parent].wall_s * 1e3
+    assert timing.counts("slab_thomas.launches", request=root.id) == {
+        (2, solver.m, solver.s): 3 * len(steps)}
+    timing.reset()
 
 
 @pytest.mark.parametrize("sides,N,m,cycles,tol", [
@@ -158,10 +190,10 @@ def test_dense_gmres_matches_twin(cuda, sides, N, m, cycles, tol):
     P, b0, Gs, b = gmres_test_problem(N)
     Pt = torch.from_numpy(P[:sides].copy()).to(cuda)
     bt = torch.from_numpy(b0[:sides].copy()).to(cuda)
-    launches, calls = dense_gmres.launches, dense_gmres.twin_calls
+    launches, calls = _counts("dense_gmres")
     xs = [dense_gmres(Pt, bt, m, cycles) for _ in range(REPEATS)]
     torch.cuda.synchronize()
-    assert (dense_gmres.launches, dense_gmres.twin_calls) == \
+    assert _counts("dense_gmres") == \
         (launches + REPEATS, calls)
     ref = dense_gmres_ref(Pt, bt, m, cycles)
     rel = max(((x - ref).abs().max() / ref.abs().max()).item() for x in xs)
@@ -193,27 +225,27 @@ def test_dense_gmres_plan_of_fewer_sms(cuda):
 def test_dense_gmres_refuses(cuda):
     """K2's wrapper raises on N above N_MAX, on three sides and on an m
     whose Givens block does not fit shared memory, and launches nothing."""
-    launches = dense_gmres.launches
+    launches = timing.total("dense_gmres.launches")
     for S, N, m in ((2, N_MAX + 128, 10), (3, 128, 10), (2, 128, 200)):
         P = torch.zeros((S, N, N), dtype=torch.complex64, device=cuda)
         b = torch.ones((S, N), dtype=torch.complex64, device=cuda)
         with pytest.raises(ValueError):
             dense_gmres(P, b, m, 1)
-    assert dense_gmres.launches == launches
+    assert timing.total("dense_gmres.launches") == launches
 
 
 def test_dense_mslp_on_card(cuda):
     """The dense engine at n = 437: flag 0, OMEGA_437 to 1e-8, through K2
     and never its plain version."""
     L = active_rijke_family()
-    launches, calls = dense_gmres.launches, dense_gmres.twin_calls
+    launches, calls = _counts("dense_gmres")
     sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11)
     om = sol.params[sol.eigval]
     assert isinstance(L._fused_solver[1], FusedPencilSolver)
     assert flag == 0
     assert abs(om - OMEGA_437) <= 1e-8 * abs(OMEGA_437)
-    assert dense_gmres.launches > launches
-    assert dense_gmres.twin_calls == calls
+    assert timing.total("dense_gmres.launches") > launches
+    assert timing.total("dense_gmres.twin_calls") == calls
 
 
 @pytest.fixture(scope="module")
@@ -243,10 +275,10 @@ def _check_k1(A, bs, r, cuda):
     op = BsrSpmm(BsrOperator.from_csr(A, bs=bs), cuda, nrhs=r)
     Xp = op.panel(random_panel(A.shape[0], r, seed=bs + r))
     args = (op.row_ptr, op.lcol, op.vals, op.block_cols, Xp)
-    launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
+    launches, calls = _counts("bsr_spmm")
     Ys = [bsr_spmm(*args) for _ in range(REPEATS)]
     torch.cuda.synchronize()
-    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == \
+    assert _counts("bsr_spmm") == \
         (launches + REPEATS, calls)
     ref = bsr_spmm_packed_ref(*args)
     scale = bsr_spmm_packed_ref(op.row_ptr, op.lcol,
@@ -273,13 +305,13 @@ def test_bsr_spmm_refuses(cuda, reordered_437):
     on a CPU/CUDA mix, and launches nothing."""
     op = BsrSpmm(BsrOperator.from_csr(reordered_437, bs=64), cuda, nrhs=48)
     Xp = op.panel(random_panel(reordered_437.shape[0], 48))
-    launches = bsr_spmm.launches
+    launches = timing.total("bsr_spmm.launches")
     with pytest.raises(ValueError, match="multiple"):
         bsr_spmm(op.row_ptr, op.lcol, op.vals, op.block_cols, Xp)
     with pytest.raises(ValueError):
         bsr_spmm(op.row_ptr.cpu(), op.lcol, op.vals, op.block_cols,
                  Xp[..., :32].contiguous())
-    assert bsr_spmm.launches == launches
+    assert timing.total("bsr_spmm.launches") == launches
 
 
 def test_operator_apply_on_card(cuda):
@@ -290,9 +322,9 @@ def test_operator_apply_on_card(cuda):
     X = random_panel(L.size, 128, seed=5)
     operator_apply(L, Z0, X)
     plan = L._bsr_plan[2]
-    launches, calls = bsr_spmm.launches, bsr_spmm.twin_calls
+    launches, calls = _counts("bsr_spmm")
     Y = operator_apply(L, 2 * np.pi * 300.0, X)
-    assert (bsr_spmm.launches, bsr_spmm.twin_calls) == (launches + 1, calls)
+    assert _counts("bsr_spmm") == (launches + 1, calls)
     assert L._bsr_plan[2] is plan
     A = L.assemble({})
     scale = np.abs(A.to_dense()) @ np.abs(X.astype(np.complex128))
@@ -334,9 +366,9 @@ def test_window_spmm_matches_twin(cuda, r):
     op = WindowSpmm.from_csr(A, nrhs=r, device=cuda)
     assert op.launch_plan(r).out_of_window > 0
     Xd = op.panel(random_panel(2500, r, seed=r))
-    launches, calls = window_spmm.launches, window_spmm.twin_calls
+    launches, calls = _counts("window_spmm")
     outs = [op.apply(Xd) for _ in range(REPEATS)]
-    assert (window_spmm.launches, window_spmm.twin_calls) == \
+    assert _counts("window_spmm") == \
         (launches + REPEATS, calls)
     _check_window(op, Xd, outs)
 
@@ -393,7 +425,7 @@ def test_window_spmm_refuses(cuda):
     A = _banded(300, 40)
     op = WindowSpmm.from_csr(A, device=cuda)
     twin = WindowSpmm.from_csr(A, device=cuda)
-    launches = window_spmm.launches
+    launches = timing.total("window_spmm.launches")
     X = random_panel(300, 8)
     with pytest.raises(ValueError):
         window_spmm(op.indptr, op.cols, op.vals, torch.from_numpy(X))
@@ -406,7 +438,7 @@ def test_window_spmm_refuses(cuda):
     for other in (op.launch_plan(16), twin.launch_plan(128)):
         with pytest.raises(ValueError, match="launch plan"):
             window_spmm(op.indptr, op.cols, op.vals, op.panel(X), other)
-    assert window_spmm.launches == launches
+    assert timing.total("window_spmm.launches") == launches
 
 
 def test_operator_apply_window_on_card(cuda):
@@ -418,9 +450,9 @@ def test_operator_apply_window_on_card(cuda):
     X = random_panel(L.size, 128, seed=6)
     operator_apply(L, Z0, X, kernel="window")
     plan = L._window_plan[2]
-    launches, calls = window_spmm.launches, window_spmm.twin_calls
+    launches, calls = _counts("window_spmm")
     Y = operator_apply(L, 2 * np.pi * 300.0, X, kernel="window")
-    assert (window_spmm.launches, window_spmm.twin_calls) == \
+    assert _counts("window_spmm") == \
         (launches + 1, calls)
     assert L._window_plan[2] is plan
     A = L.assemble({})

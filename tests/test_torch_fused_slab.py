@@ -18,7 +18,7 @@ from wavesandeigenvalues_jl_tpu_torch.models.rijke import (
 from wavesandeigenvalues_jl_tpu_torch.nlevp import load_family, mslp
 from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
-from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import slab_thomas
+from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
 torch.set_num_threads(2)
 
@@ -44,10 +44,11 @@ def test_one_step_matches_jax():
     dz_j, lam_j, _, res_j = FusedSlabJax(Lj).step(complex(Z0), carries,
                                                   0.0 + 0.0j, True)
     solver = FusedSlabPencilSolver(Lt, "cpu")
-    calls = slab_thomas.twin_calls
+    calls = timing.total("slab_thomas.twin_calls")
     dz_t, lam_t, carries_t, res_t = solver.step(
         complex(Z0), torch.ones(2, n, dtype=torch.complex64), 0.0 + 0.0j)
-    assert slab_thomas.twin_calls == calls + 3        # 3 solves per step
+    # 3 solves per step
+    assert timing.total("slab_thomas.twin_calls") == calls + 3
     assert carries_t.shape == (2, n) and carries_t.dtype == torch.complex64
     assert abs(dz_t - dz_j) <= 5e-7 * abs(dz_j)
     assert abs(lam_t - lam_j) <= 5e-7 * abs(lam_j)
@@ -64,9 +65,9 @@ def test_mslp_matches_jax_host():
     om_h = sol_h.params[sol_h.eigval]
     L = active_rijke_family()
     L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, "cpu"))
-    calls = slab_thomas.twin_calls
+    calls = timing.total("slab_thomas.twin_calls")
     sol, n_it, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device="cpu")
-    assert slab_thomas.twin_calls > calls
+    assert timing.total("slab_thomas.twin_calls") > calls
     om = sol.params[sol.eigval]
     assert flag_h == 0 and flag == 0
     assert abs(om - om_h) <= 1e-8 * abs(om_h)

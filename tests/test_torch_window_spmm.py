@@ -42,6 +42,14 @@ from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (cuthill_mckee,
 from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
     CHUNK, CONSUMER_WARPS, RING_ROWS, RING_STAGES, ROWS_A_WARP, STAGE_ROWS,
     TILE_ROWS, WindowSpmm, plan, window_spmm, window_spmm_ref)
+from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+
+def _counts(kernel):
+    """(launches, plain calls) of a kernel wrapper so far."""
+    return (timing.total(f"{kernel}.launches"),
+            timing.total(f"{kernel}.twin_calls"))
+
 
 torch.set_num_threads(2)
 
@@ -144,9 +152,9 @@ def test_ref_matches_jax_window_kernels(name):
     row-wise within 1e-6."""
     A, jax_op, X = _case(name)
     n = A.shape[0]
-    calls = window_spmm.twin_calls
+    calls = timing.total("window_spmm.twin_calls")
     Y = _port(A, X.shape[1])(X)
-    assert window_spmm.twin_calls == calls + 1
+    assert timing.total("window_spmm.twin_calls") == calls + 1
     Yj = np.asarray(jax_op(X))[:n]
     Yref = A @ X.astype(np.complex128)
     assert Y.shape == (n, X.shape[1]) and Y.dtype == np.complex64
@@ -199,9 +207,9 @@ def test_wrapper_checks_and_counts():
     A = _banded(300, 40)
     op = _port(A, 8)
     X = op.panel(random_panel(300, 8))
-    launches, calls = window_spmm.launches, window_spmm.twin_calls
+    launches, calls = _counts("window_spmm")
     op.apply(X)
-    assert (window_spmm.launches, window_spmm.twin_calls) == \
+    assert _counts("window_spmm") == \
         (launches, calls + 1)
     with pytest.raises(TypeError):
         window_spmm(op.indptr, op.cols, op.vals.to(torch.complex128), X)
@@ -460,10 +468,10 @@ def test_operator_apply_window_reuses_plan():
     X = random_panel(L.size, 32, seed=3)
     operator_apply(L, 340 * 2 * np.pi, X, kernel="window", device="cpu")
     plan = L._window_plan[2]
-    calls = window_spmm.twin_calls
+    calls = timing.total("window_spmm.twin_calls")
     Y = operator_apply(L, OMEGA, X, kernel="window", device="cpu")
     assert L._window_plan[2] is plan
-    assert window_spmm.twin_calls == calls + 1
+    assert timing.total("window_spmm.twin_calls") == calls + 1
     assert Y.shape == X.shape and Y.dtype == np.complex64
     As = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
     assert _rowwise(Y, As @ X.astype(np.complex128), As, X) <= 1e-6

@@ -21,12 +21,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.timing import request
 from .family import OperatorFamily, Solution
 from .pade import polyval
 from .perturbation import perturb_fast
 from .solvers import mslp
 
 
+@request("track_branch")
 def track_branch(L: OperatorFamily, param: str, values: Sequence[complex],
                  z0: complex, order: int = 2, solver: Callable = mslp,
                  tol: float = 1e-11, maxiter: int = 30, output: bool = False,
@@ -47,6 +49,9 @@ def track_branch(L: OperatorFamily, param: str, values: Sequence[complex],
     ``np.linalg.LinAlgError``, of which ``SingularMatrixError`` is one)
     leaves the next guess at zeroth order, as in the JAX package; any
     other error (a device, build or launch fault) propagates.
+
+    The sweep is one request of ``utils.timing``; each solve in it is a
+    child span of that request.
 
     Example — growth-rate curve of the active Rijke mode over flame delay::
 

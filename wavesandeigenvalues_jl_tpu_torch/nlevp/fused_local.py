@@ -18,6 +18,13 @@ caught: the JAX function also returns ``None`` where building the engine
 or a step raises; the port lets that error propagate, so a kernel that
 fails to build or launch raises.  The host polish is wrapped as in the JAX
 package: a linear-algebra error there keeps the device iterate.
+
+Phases (``utils.timing``): ``fused_local.setup`` (the engine, once a
+family), ``fused_local.device_step`` (with the step's own, :mod:`.pencil`)
+and ``fused_local.polish_step`` with ``assemble`` (L(z), L′(z), M),
+``lu``, ``arnoldi`` (both shift-invert runs) and ``quotient``.  The
+request's front door gets the attributes ``engine`` (the engine's class),
+``device_steps`` and ``polish_steps``.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from ..ops.dense_gmres import dense_gmres
 from ..ops.gmres import BatchedBlockDiagInv
 from ..ops.linsolve import factorize
 from ..utils.config import CDTYPE, DEVICE_CDTYPE
-from ..utils.timing import phase
+from ..utils.timing import annotate, phase
 from .eigs import eigs_shift_invert
 from .family import OperatorFamily, Solution
 from .fused_slab import FusedSlabPencilSolver
@@ -175,6 +182,7 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         print("Iter    Res:         dz:          z:")
 
     sigma = 0.0 + 0.0j
+    n_dev = n_pol = 0
     # the device loop only needs to land inside the Newton basin — the
     # complex128 host polish below supplies the last digits
     dev_tol = max(tol_s, 1e-5 * max(abs(z), 1.0))
@@ -184,6 +192,8 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         with phase("fused_local.device_step"):
             dz, lam, carries, res = solver.step(z, carries, sigma,
                                                 refresh=(n_it == 0))
+        n_dev += 1
+        annotate(engine=type(solver).__name__, device_steps=n_dev)
         if not np.isfinite(dz):
             warnings.warn(f"fused device step {n_it}: non-finite dz = {dz}; "
                           "the general local engine takes over (above "
@@ -229,23 +239,30 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         for _ in range(3):
             if n_it >= maxiter:
                 break
+            n_pol += 1
+            annotate(polish_steps=n_pol)
             with phase("fused_local.polish_step"):
-                L.params[eig] = z
-                L.params[aux] = 0.0
-                A = L(z)
-                M = L.aux_weight()
-                F = factorize(A, check=True, backend="host")
-                lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8,
-                                               factor=F)
-                lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj, m=8,
-                                               factor=F, adjoint=True)
-                lam_p = complex(lam_arr[0])
-                vh = V[:, 0]
-                wh = W[:, 0]
-                A1 = L(z, 1)
-                den = np.vdot(wh, M @ vh)
-                lam_d = np.vdot(wh, A1 @ vh) / den
-                dz = -lam_p / lam_d
+                with phase("assemble"):
+                    L.params[eig] = z
+                    L.params[aux] = 0.0
+                    A = L(z)
+                    A1 = L(z, 1)
+                    M = L.aux_weight()
+                with phase("lu"):
+                    F = factorize(A, check=True, backend="host")
+                with phase("arnoldi"):
+                    lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8,
+                                                   factor=F)
+                    lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj,
+                                                   m=8, factor=F,
+                                                   adjoint=True)
+                with phase("quotient"):
+                    lam_p = complex(lam_arr[0])
+                    vh = V[:, 0]
+                    wh = W[:, 0]
+                    den = np.vdot(wh, M @ vh)
+                    lam_d = np.vdot(wh, A1 @ vh) / den
+                    dz = -lam_p / lam_d
                 if not (np.isfinite(dz)
                         and abs(dz) < 1e-2 * max(abs(z), 1.0)):
                     break

@@ -14,6 +14,13 @@ Per Newton step the host evaluates the family's coefficient vectors c(z),
 * two-sided complex128 Rayleigh quotients on the pure A, which give λ, λ′
   and the Newton update dz = −λ/λ′.
 
+A step's phases (``utils.timing``, under the caller's): ``coefficients``
+(host c(z), any preconditioner refresh, the upload), ``factor`` (the solve
+data and the engine's solver, :meth:`PencilSolver.solver`), ``solves``
+(the inner solves and the quotients) and ``fetch`` (the one device→host
+copy, where the host first waits for the card).  ``factor`` and
+``solves`` are device spans: on a card they also time the stream.
+
 The TPU's float64-pair arithmetic of the JAX package is native complex128
 here and its float32 planes are complex64.  Sparse products use a padded
 ELL gather (deterministic, no atomics).
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from ..utils.config import CDTYPE, DEVICE_CDTYPE, TORCH_CDTYPE
+from ..utils.timing import phase
 from .family import AUX_OPERATOR, OperatorFamily
 
 REFINE_SWEEPS = 1
@@ -159,9 +167,16 @@ class PencilSolver(nn.Module):
         a complex128 scalar tensor, carries [2, n] complex64 (direct and
         adjoint vector).  Returns (scal [3] = (dz, λ, λ′) complex128,
         res [2] float64 refined relative residuals, carries [2, n])."""
+        with phase("factor", device=self.device):
+            a, g = self.solve_data(c, sigma)
+            solve_both = self.solver(g)
+        with phase("solves", device=self.device):
+            return self._solves(a, g, solve_both, dc, carries)
+
+    def _solves(self, a, g, solve_both, dc, carries):
+        """The inner solves and the Rayleigh quotients of :meth:`forward`
+        from A's data ``a``, the solve data ``g`` and the engine's solve."""
         vals2, mdat2 = self.vals2, self.mdat2
-        a, g = self.solve_data(c, sigma)
-        solve_both = self.solver(g)
         mdat32 = mdat2.to(DEVICE_CDTYPE)
 
         def refined_inverse_step(v, sweeps):
@@ -206,15 +221,16 @@ class PencilSolver(nn.Module):
         """Host side of one Newton step: coefficients in (and the
         preconditioner refreshed at them when ``refresh``), ONE device
         fetch of (dz, λ, residuals) out."""
-        c, dc = self.coefficients(z)
-        if refresh or self.stale:
-            self.refresh_bj(c, sigma)
         dev = self.device
-        scal, res, carries = self(
-            torch.from_numpy(c).to(dev), torch.from_numpy(dc).to(dev),
-            torch.tensor(complex(sigma), dtype=TORCH_CDTYPE, device=dev),
-            carries)
-        out = torch.cat([scal, res.to(TORCH_CDTYPE)]).cpu().numpy()
+        with phase("coefficients"):
+            c, dc = self.coefficients(z)
+            if refresh or self.stale:
+                self.refresh_bj(c, sigma)
+            c, dc = torch.from_numpy(c).to(dev), torch.from_numpy(dc).to(dev)
+            sig = torch.tensor(complex(sigma), dtype=TORCH_CDTYPE, device=dev)
+        scal, res, carries = self(c, dc, sig, carries)
+        with phase("fetch"):
+            out = torch.cat([scal, res.to(TORCH_CDTYPE)]).cpu().numpy()
         return complex(out[0]), complex(out[1]), carries, out[3:].real
 
     def fetch_vectors(self, carries):

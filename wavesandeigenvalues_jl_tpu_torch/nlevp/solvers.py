@@ -28,6 +28,12 @@ global-local ``solve`` refines Beyn's estimates with
 ``householder(order=3)``; ``generate_subspace`` builds the residual-
 controlled projection subspace.
 
+Each call of ``householder``, ``padesolve``, ``mslp`` and ``beyn`` is a
+request of ``utils.timing`` (:func:`..utils.timing.request`): a root span
+with a new request id, or a child span inside an open request.  A local
+solve sets its ``engine`` (the fused engine's class, or "general"),
+``flag``, ``device_steps`` and ``polish_steps`` on it.
+
 Reference implementations: src/NLEVP/{Householder.jl,iterative_solvers.jl,
 beyn.jl}.
 """
@@ -40,6 +46,7 @@ import numpy as np
 
 from ..ops.linsolve import SingularMatrixError, factorize
 from ..utils.config import CDTYPE, solve_backend
+from ..utils.timing import annotate, request
 from .eigs import eigs_pencil_pair, eigs_shift_invert
 from .family import OperatorFamily, Solution
 from .fused_local import try_fused_local
@@ -111,6 +118,7 @@ def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     # (mslp default and householder order 1, both the Newton update
     # dz = -λ/λ′) on a device backend; a non-finite device step hands the
     # iteration back here, from the start
+    annotate(engine="general", device_steps=0, polish_steps=0)
     if (nev == 1 and order == 1 and num_order <= 1
             and update in ("householder", "pade")
             and solve_backend().startswith("device")):
@@ -118,7 +126,9 @@ def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                               lam_tol=lam_tol, v0=v0, v0_adj=v0_adj,
                               output=output, scale=scale, device=device)
         if out is not None:
+            annotate(flag=out[2])
             return out
+        annotate(engine="general")
     z = complex(z) * scale
     tol = tol * abs(scale) if scale != 1 else tol
     saved_active, saved_mode = list(L.active), L.mode
@@ -252,9 +262,11 @@ def _local_engine(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
         c = np.conj(v0_adj.conj() @ L1v)
         if c != 0 and np.isfinite(c):
             v0_adj = v0_adj / c
+    annotate(flag=flag)
     return Solution(L.params, v0, v0_adj, eig), n, flag
 
 
+@request("householder")
 def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
                 lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None,
                 output=False, *, device="cuda"):
@@ -266,6 +278,7 @@ def householder(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
                          num_order=1, scale=1, device=device)
 
 
+@request("padesolve")
 def padesolve(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
               lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None,
               num_order=1, output=False, *, device="cuda"):
@@ -277,6 +290,7 @@ def padesolve(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
                          num_order=num_order, scale=1, device=device)
 
 
+@request("mslp")
 def mslp(L: OperatorFamily, z, maxiter=10, tol=0.0, relax=1.0,
          lam_tol=np.inf, order=1, nev=1, v0=None, v0_adj=None, num_order=1,
          scale=1, output=False, *, device="cuda"):
@@ -838,6 +852,7 @@ def _moments_backend(L: OperatorFamily, Gamma, V, K: int, N: int,
                            device=device, **solver_kw)
 
 
+@request("beyn")
 def beyn(L: OperatorFamily, Gamma, l=5, K=1, N=16, tol=0.0, rtol=0.0,
          pos_test_flag=True, output=False, random=False,
          checkpoint: Optional[str] = None, res_tol: Optional[float] = None,

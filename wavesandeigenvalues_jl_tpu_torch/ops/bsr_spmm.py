@@ -16,8 +16,8 @@ kernel ``csrc/bsr_spmm.cu``: the counterpart of the Pallas TPU kernel
   tests' bridge to the JAX package.
 * :func:`bsr_spmm` takes the plain version only for tensors that lie on the
   CPU; for CUDA tensors it launches the kernel or raises.  It counts its
-  launches (``bsr_spmm.launches``) and its CPU calls
-  (``bsr_spmm.twin_calls``).
+  launches and its CPU calls in ``utils.timing``'s counters
+  ``bsr_spmm.launches`` and ``bsr_spmm.twin_calls``.
 * :class:`BsrSpmm` holds a packed operator on the device (the counterpart
   of ``PallasBsrSpmm``); :func:`operator_apply` is the entry point:
   evaluate the family at z, write its values into the packed layout of the
@@ -165,7 +165,7 @@ def bsr_spmm(row_ptr: torch.Tensor, lcol: torch.Tensor, vals: torch.Tensor,
     (:class:`BsrSpmm` ensures both)."""
     _check(row_ptr, lcol, vals, block_cols, X)
     if X.device.type == "cpu":
-        bsr_spmm.twin_calls += 1
+        timing.count("bsr_spmm.twin_calls")
         return bsr_spmm_packed_ref(row_ptr, lcol, vals, block_cols, X)
     if X.device.type != "cuda":
         raise ValueError(f"bsr_spmm has no kernel for {X.device}")
@@ -183,12 +183,8 @@ def bsr_spmm(row_ptr: torch.Tensor, lcol: torch.Tensor, vals: torch.Tensor,
             block_cols.data_ptr(), X.data_ptr(), Y.data_ptr(), nbr, maxb,
             bs, r, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, "bsr_spmm", code)
-    bsr_spmm.launches += 1
+    timing.count("bsr_spmm.launches")
     return Y
-
-
-bsr_spmm.launches = 0
-bsr_spmm.twin_calls = 0
 
 
 class BsrSpmm(nn.Module):

@@ -14,8 +14,8 @@ which rows of P stay in shared memory.
   as Python loops over complex64 tensors.
 * :func:`dense_gmres` takes the plain version only for tensors that lie on
   the CPU; for CUDA tensors it launches the kernel or raises.  It counts
-  its launches (``dense_gmres.launches``) and its CPU calls
-  (``dense_gmres.twin_calls``).
+  its launches and its CPU calls in ``utils.timing``'s counters
+  ``dense_gmres.launches`` and ``dense_gmres.twin_calls``.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import timing
 from . import cuda_build
 
 #: N must be a multiple of this (the JAX kernel's lane width)
@@ -251,19 +252,15 @@ def dense_gmres(P: torch.Tensor, b: torch.Tensor, m: int,
     tensors: plain version; CUDA tensors: one launch of the kernel."""
     _check(P, b, m, cycles)
     if P.device.type == "cpu":
-        dense_gmres.twin_calls += 1
+        timing.count("dense_gmres.twin_calls")
         return dense_gmres_ref(P, b, m, cycles)
     if P.device.type != "cuda":
         raise ValueError(f"dense_gmres has no kernel for {P.device}")
     lib = build()["lib"]
     with torch.cuda.device(P.device):
         x = launch(lib, P, b, m, cycles)
-    dense_gmres.launches += 1
+    timing.count("dense_gmres.launches")
     return x
-
-
-dense_gmres.launches = 0
-dense_gmres.twin_calls = 0
 
 
 __all__ = ["dense_gmres", "dense_gmres_ref", "build", "plan", "Plan",

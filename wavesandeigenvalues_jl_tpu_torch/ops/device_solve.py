@@ -21,7 +21,9 @@ perturbation.jl:385) on the card, selected by
 Both compute in complex128, as the JAX package does on every device but a
 TPU (whose complex64 and float planes the port does not copy).  Only the
 right-hand sides and solutions cross between host and device
-(``TRANSFER_BYTES`` counts them, with the factorization's CSR values).
+(``utils.timing``'s counters ``device_solve.to_device_bytes`` and
+``device_solve.to_host_bytes`` count them, with the factorization's CSR
+values).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.config import CDTYPE
+from ..utils import timing
 from ..utils.timing import phase
 from .device import EllOperator
 from .gmres import _block_apply, _block_diag_inv, gmres_impl
@@ -42,19 +45,16 @@ from .sparse import CSR
 #: is the contour's own limit, as in JAX)
 DEVICE_DENSE_MAX_DIM = 4096
 
-#: host↔device bytes moved by this module since the last reset
-TRANSFER_BYTES = {"to_device": 0, "to_host": 0}
-
 
 def _to_device(x: np.ndarray, device) -> torch.Tensor:
     x = np.ascontiguousarray(x)
-    TRANSFER_BYTES["to_device"] += x.nbytes
+    timing.count("device_solve.to_device_bytes", x.nbytes)
     return torch.from_numpy(x).to(device)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     x = t.resolve_conj().cpu().numpy()
-    TRANSFER_BYTES["to_host"] += x.nbytes
+    timing.count("device_solve.to_host_bytes", x.nbytes)
     return x
 
 
@@ -280,8 +280,8 @@ class DeviceGMRES(_RefinedFactorization):
                                np.asarray(vals, np.complex128),
                                A.shape[0], self.bs)
         ell = EllOperator.from_csr(A, device=self.device)
-        TRANSFER_BYTES["to_device"] += (16 * ell.cols.numel()
-                                        + ell.mask.numel())
+        timing.count("device_solve.to_device_bytes",
+                     16 * ell.cols.numel() + ell.mask.numel())
         data = ell.pack(_to_device(np.asarray(A.data, CDTYPE), self.device))
         return ell.cols, data, _block_apply(_to_device(Dinv, self.device),
                                             self.n)
@@ -328,4 +328,4 @@ def device_factorize(A: Union[CSR, np.ndarray], backend: str = "device",
 
 
 __all__ = ["DeviceLU", "DeviceGMRES", "device_factorize",
-           "DEVICE_DENSE_MAX_DIM", "TRANSFER_BYTES"]
+           "DEVICE_DENSE_MAX_DIM"]

@@ -14,8 +14,9 @@ build_slab_thomas``.
   [1, s] x [s, s] products.
 * :func:`slab_thomas` takes the plain version only for tensors that lie on
   the CPU; for CUDA tensors it launches the kernel or raises.  It counts
-  its launches (``slab_thomas.launches``) and its CPU calls
-  (``slab_thomas.twin_calls``).
+  its launches and its CPU calls in ``utils.timing``'s counters
+  ``slab_thomas.launches`` and ``slab_thomas.twin_calls``, keyed by the
+  shape (sides, m, s).
 * The kernel is compiled from the repository's source on first use with
   ``nvcc`` and loaded with ctypes (:mod:`.cuda_build`).
 """
@@ -26,6 +27,7 @@ import functools
 
 import torch
 
+from ..utils import timing
 from . import cuda_build
 
 #: the kernel takes slab widths s that are a multiple of this, up to S_MAX
@@ -86,12 +88,12 @@ def slab_thomas(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     stream.  CPU tensors: plain version; CUDA tensors: the kernel (s a
     multiple of 128, as ``FusedSlabPencilSolver`` pads it, up to 9,472)."""
     _check(stream, bt)
+    sides, m, s = bt.shape
     if stream.device.type == "cpu":
-        slab_thomas.twin_calls += 1
+        timing.count("slab_thomas.twin_calls", key=(sides, m, s))
         return slab_thomas_ref(stream, bt)
     if stream.device.type != "cuda":
         raise ValueError(f"slab_thomas has no kernel for {stream.device}")
-    sides, m, s = bt.shape
     if s % S_MULTIPLE or s > S_MAX or stream.data_ptr() % 16 or \
             bt.data_ptr() % 16:
         raise ValueError(f"the kernel takes s a multiple of {S_MULTIPLE} up "
@@ -104,12 +106,8 @@ def slab_thomas(stream: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
             stream.data_ptr(), bt.data_ptr(), x.data_ptr(), sides, m, s,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, "slab_thomas", code)
-    slab_thomas.launches += 1
+    timing.count("slab_thomas.launches", key=(sides, m, s))
     return x
-
-
-slab_thomas.launches = 0
-slab_thomas.twin_calls = 0
 
 
 __all__ = ["slab_thomas", "slab_thomas_ref", "build", "S_MULTIPLE",

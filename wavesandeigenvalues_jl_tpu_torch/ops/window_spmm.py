@@ -22,9 +22,8 @@ band exceeds the ring, which K4 and K5 refuse, gets the right Y.
   times the values, then ``index_add_`` into the rows.
 * :func:`window_spmm` takes the plain version only for tensors that lie on
   the CPU; for CUDA tensors it launches the kernel by its plan or
-  raises.  It counts
-  its launches (``window_spmm.launches``) and its CPU calls
-  (``window_spmm.twin_calls``).
+  raises.  It counts its launches and its CPU calls in ``utils.timing``'s
+  counters ``window_spmm.launches`` and ``window_spmm.twin_calls``.
 * :class:`WindowSpmm` holds a reordered CSR operator on the device (the
   counterpart of ``WindowSpmm`` and ``ChunkSpmm``), with ``chain`` for m
   normalized applies (the counterpart of ``chain_fn``).
@@ -39,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import timing
 from . import cuda_build
 from .dense_gmres import sm_count
 from .sparse import CSR
@@ -296,7 +296,7 @@ def window_spmm(indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                          "product's: it was made for other tensors, another "
                          "width or another device")
     if X.device.type == "cpu":
-        window_spmm.twin_calls += 1
+        timing.count("window_spmm.twin_calls")
         return window_spmm_ref(indptr, cols, vals, X)
     if X.device.type != "cuda":
         raise ValueError(f"window_spmm has no kernel for {X.device}")
@@ -309,12 +309,8 @@ def window_spmm(indptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     lib = build()["lib"]
     with torch.cuda.device(X.device):
         Y = launch(lib, vals, X, lp)
-    window_spmm.launches += 1
+    timing.count("window_spmm.launches")
     return Y
-
-
-window_spmm.launches = 0
-window_spmm.twin_calls = 0
 
 
 class WindowSpmm(nn.Module):
