@@ -35,8 +35,8 @@ def program(monkeypatch):
     def use(spans, launches=None):
         monkeypatch.setattr(timing, "spans", lambda: list(spans))
 
-        def counts(name, request=None, traced=None):
-            assert name == "slab_thomas.launches" and traced is None
+        def counts(name, request=None):
+            assert name == "slab_thomas.launches"
             out = {}
             for req, by_shape in (launches or {}).items():
                 if request is None or req in request:

@@ -134,8 +134,8 @@ def test_device_spans_on_the_cpu(solved):
 
 
 def test_counters_and_annotate_scope():
-    """count() by key, request and trace state; annotate() outside any
-    request does nothing."""
+    """count() by key and by request; annotate() outside any request does
+    nothing."""
     timing.reset()
     timing.annotate(engine="nowhere")
     timing.count("c", 2, key="x")
@@ -147,8 +147,8 @@ def test_counters_and_annotate_scope():
     assert timing.counts("c") == {"x": 3, None: 5}
     assert timing.counts("c", request=r.id) == {"x": 1, None: 5}
     assert timing.total("c", request=[r.id]) == 6
-    assert timing.total("c", traced=True) == 0
-    assert timing.total("c", traced=False) == 8
+    assert timing.total("c", request=[]) == 0
+    assert timing.total("c") == 8
     assert timing.counts("absent") == {}
     timing.reset()
 
@@ -203,3 +203,26 @@ def test_full_buffer_drops_and_counts(monkeypatch):
     assert timing.report()["p"]["calls"] == 5
     timing.reset()
     assert timing.dropped() == 0
+
+
+def test_full_buffer_keeps_counters_bounded(monkeypatch):
+    """Counts of a request whose root span a full buffer refused go to the
+    totals alone: the counters hold one table per kept request, however
+    many requests count."""
+    timing.reset()
+    monkeypatch.setattr(timing, "SPAN_CAPACITY", 4)
+    ids = []
+    for i in range(50):
+        with timing.request("r") as r:
+            with timing.phase("p"):
+                timing.count("c", key=i % 3)
+        ids.append(r.id)
+    kept = [s.id for s in timing.spans() if s.id == s.request]
+    assert kept == ids[:2] and timing.dropped() == 96
+    assert len(timing._by_request) == 2
+    assert len(timing._counters) == 3
+    assert timing.counts("c") == {0: 17, 1: 17, 2: 16}
+    assert timing.counts("c", request=ids[0]) == {0: 1}
+    assert timing.total("c", request=ids[1:]) == 1
+    timing.reset()
+    assert timing._by_request == {} and timing._counters == {}

@@ -20,8 +20,9 @@ its name never enters the dotted path.  ``annotate(**attrs)`` sets
 attributes on the innermost open front door.  A span's host start and end
 (:attr:`Span.start`, :attr:`Span.end`) lie on the time base of the last
 device trace written, so they intersect that trace's events.
-``count(name, n, key)`` adds to a counter, kept by key, request and
-whether a device trace was running; ``counts()`` and ``total()`` read it.
+``count(name, n, key)`` adds to a counter, kept by key, and by request
+for the requests whose root span the buffer kept; ``counts()`` and
+``total()`` read it.
 ``reset()`` clears phases, spans and counters.
 
 ``start_device_trace(logdir)`` / ``stop_device_trace()`` capture a
@@ -60,8 +61,10 @@ _ids = itertools.count(1)
 #: event, end event, device index), and the idle events by device index
 _pending: list = []
 _event_pool: Dict[int, list] = defaultdict(list)
-#: counter totals by (name, key, request id, a device trace was running)
+#: counter totals by (name, key), and the same for each request whose
+#: root span the buffer kept, by request id
 _counters: Dict[tuple, int] = defaultdict(int)
+_by_request: Dict[int, Dict[tuple, int]] = {}
 #: CLOCK_REALTIME less the monotonic clock, and the last device trace's
 #: time base (the Chrome trace's ``baseTimeNanoseconds``), in ns
 _clock = [time.time_ns() - time.perf_counter_ns(), 0]
@@ -111,7 +114,7 @@ def _state():
     return st
 
 
-def _open(st, name: str, path: str, attrs: dict, front: bool) -> Span:
+def _open(st, name: str, path: str, front: bool) -> Span:
     global _dropped
     parent = st.open[-1] if st.open else None
     rec = Span()
@@ -121,13 +124,15 @@ def _open(st, name: str, path: str, attrs: dict, front: bool) -> Span:
         rec.request = parent.request
     else:
         rec.request = rec.id if front else None
-    rec.name, rec.path, rec.attrs = name, path, dict(attrs)
+    rec.name, rec.path, rec.attrs = name, path, {}
     rec.t1 = rec.device_ms = None
     rec.traced = _trace is not None
     st.open.append(rec)
     with _lock:
         if len(_spans) < SPAN_CAPACITY:
             _spans.append(rec)
+            if rec.id == rec.request:
+                _by_request[rec.id] = defaultdict(int)
         else:
             _dropped += 1
     return rec
@@ -159,12 +164,12 @@ def _resolve(block: bool):
 
 
 @contextmanager
-def _span(name: str, attrs: dict, front: bool, device=None):
+def _span(name: str, front: bool, device=None):
     st = _state()
     if not front:
         st.parts.append(name)
     path = ".".join(st.parts) if not front else name
-    rec = _open(st, name, path, attrs, front)
+    rec = _open(st, name, path, front)
     if front:
         st.fronts.append(rec)
     nvtx = torch.cuda.is_initialized()
@@ -212,18 +217,19 @@ def _span(name: str, attrs: dict, front: bool, device=None):
             _resolve(block=rec.id == rec.request)
 
 
-def phase(name: str, device=None, **attrs):
+def phase(name: str, device=None):
     """Accumulate wall time under ``name`` (dotted path when nested) and
-    record its :class:`Span` (yielded), with ``attrs``.  With a CUDA
-    ``device`` the span also times that device's current stream."""
-    return _span(name, attrs, False, device)
+    record its :class:`Span` (yielded).  With a CUDA ``device`` the span
+    also times that device's current stream."""
+    return _span(name, False, device)
 
 
-def request(name: str, **attrs):
+def request(name: str):
     """A front door's span (a context manager, or a decorator): a new
     request outside any, a child span inside one.  Its name does not enter
-    the dotted path of the phases under it."""
-    return _span(name, attrs, True)
+    the dotted path of the phases under it; :func:`annotate` sets its
+    attributes."""
+    return _span(name, True)
 
 
 def annotate(**attrs):
@@ -248,29 +254,36 @@ def dropped() -> int:
 
 
 def count(name: str, n: int = 1, key=None):
-    """Add ``n`` to counter ``name`` (under ``key``), in the open request."""
+    """Add ``n`` to counter ``name`` (under ``key``), and to the open
+    request's own count where the buffer kept that request's root span."""
     opened = _state().open
     req = opened[-1].request if opened else None
-    k = (name, key, req, _trace is not None)
+    k = (name, key)
     with _lock:
         _counters[k] += n
+        own = _by_request.get(req)
+        if own is not None:
+            own[k] += n
 
 
-def counts(name: str, *, request: Union[None, int, Iterable[int]] = None,
-           traced: Optional[bool] = None) -> dict:
+def counts(name: str, *,
+           request: Union[None, int, Iterable[int]] = None) -> dict:
     """{key: total} of counter ``name`` since the last reset; ``request``
-    (an id, or several) keeps the counts made inside those requests,
-    ``traced`` those made while a device trace ran (True) or not
-    (False)."""
-    if request is not None and isinstance(request, int):
+    (an id, or several) keeps the counts made inside those requests (none
+    for a request whose root span a full buffer refused)."""
+    if isinstance(request, int):
         request = (request,)
-    reqs = None if request is None else set(request)
     out: dict = defaultdict(int)
     with _lock:
-        for (nm, key, req, tr), n in _counters.items():
-            if nm == name and (reqs is None or req in reqs) and \
-                    (traced is None or tr == traced):
-                out[key] += n
+        if request is None:
+            tables = [_counters]
+        else:
+            tables = [_by_request[r] for r in set(request)
+                      if r in _by_request]
+        for table in tables:
+            for (nm, key), n in table.items():
+                if nm == name:
+                    out[key] += n
     return dict(out)
 
 
@@ -296,6 +309,7 @@ def reset():
         _counts.clear()
         _spans.clear()
         _counters.clear()
+        _by_request.clear()
         del _pending[:]
         _dropped = 0
 
