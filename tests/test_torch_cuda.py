@@ -177,6 +177,135 @@ def test_step_spans_on_card(cuda):
     timing.reset()
 
 
+def _solve_data(solver, z, sigma=0.0):
+    """Both sides' complex128 solve data g [2, nnz] of ``solver`` at z."""
+    c, _ = solver.coefficients(complex(z))
+    dev = solver.device
+    return solver.solve_data(torch.from_numpy(c).to(dev),
+                             torch.tensor(complex(sigma), device=dev,
+                                          dtype=torch.complex128))[1]
+
+
+def _solve_loop_factor(solver, g, dtype=torch.complex64):
+    """The slab factor as it ran before the CUDA graph: equilibration,
+    scatter and m batched ``torch.linalg.solve`` steps, launched eagerly,
+    in ``dtype`` (the panels rounded to complex64 first, as the engine
+    has them).  Returns (DT, stream)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.pencil import _pad0
+    m, s = solver.m, solver.s
+    rm = solver._ell(_pad0(g.abs())).amax(-1)
+    scale = 1.0 / torch.where(rm == 0, 1.0, rm)
+    gs = (g * scale.gather(1, solver.rows2)).to(torch.complex64).to(dtype)
+    blk = gs.new_zeros(2 * m * 3 * s * s)
+    blk.index_put_((solver.dest2.view(-1),), gs.view(-1))
+    blk = blk.view(2, m, 3, s, s)
+    eye = torch.eye(s, dtype=dtype, device=blk.device).expand(2, s, s)
+    pad = solver.pad.to(dtype)
+    DT = blk.new_empty(2, m, s, s)
+    stream = blk.new_empty(2, 2 * m, s, s)
+    C = blk.new_zeros(2, s, s)
+    for i in range(m):
+        Lb, Db, Ub = blk[:, i, 0], blk[:, i, 1], blk[:, i, 2]
+        Dtinv = torch.linalg.solve(Db - Lb @ C + torch.diag(pad[i]), eye)
+        C = Dtinv @ Ub
+        DT[:, i] = Dtinv
+        stream[:, i] = (Dtinv @ Lb).transpose(1, 2)
+        stream[:, 2 * m - 1 - i] = C.transpose(1, 2)
+    return DT, stream
+
+
+def _rel(a, b):
+    """Largest entry of a − b over b's largest entry."""
+    return ((a.to(b.dtype) - b).abs().max() / b.abs().max()).item()
+
+
+def _check_factor(solver, g, DT, stream):
+    """DT and the K3 stream of the slab factor at g: against the same
+    recursion in complex128, no farther than the loop of batched
+    ``torch.linalg.solve`` that the graph replaced (on an H100: 1.2e-5
+    against 1.3e-4 at (2, 59, 256), both for the inverses).  The two
+    complex64 routes differ from each other by that loop's own rounding,
+    so they are not compared with each other."""
+    exact = _solve_loop_factor(solver, g, torch.complex128)
+    loop = _solve_loop_factor(solver, g)
+    for got, old, ref in zip((DT, stream), loop, exact):
+        assert _rel(got, ref) <= _rel(old, ref)
+
+
+#: rijke_mesh arguments of active families and their slab shapes (m, s):
+#: the benchmark cell's (2, 59, 256) at 7,259 DOF, and (2, 48, 128) at
+#: 1,805 DOF (path H1's shape)
+SLAB_MESHES = {(4, 59, 57): (59, 256), (2, 46, 46): (48, 128)}
+
+
+@pytest.mark.parametrize("mesh", list(SLAB_MESHES), ids=["2x59x256",
+                                                         "2x48x128"])
+def test_factor_graph_matches_solve_loop(cuda, mesh):
+    """The replayed factor graph is as close to the complex128 recursion
+    as the batched-solve loop it replaced (``_check_factor``), and every
+    one of 20 replays on the same input gives the same bits (the sides'
+    two streams share no scratch)."""
+    solver = FusedSlabPencilSolver(active_rijke_family(*mesh), cuda)
+    assert (solver.m, solver.s) == SLAB_MESHES[mesh]
+    g = _solve_data(solver, Z0)
+    DT, stream, _ = solver._factor(g)
+    assert solver._graph is not None
+    first = (DT.clone(), stream.clone())
+    _check_factor(solver, g, *first)
+    for _ in range(20):
+        DT, stream, _ = solver._factor(g)
+        assert torch.equal(DT, first[0]) and torch.equal(stream, first[1])
+
+
+def test_factor_graph_refreshes_its_inputs(cuda):
+    """Two replays on different solve data each give their own input's
+    factor: the graph reads the static input buffer anew."""
+    solver = FusedSlabPencilSolver(active_rijke_family(2, 46, 46), cuda)
+    gs = [_solve_data(solver, Z0), _solve_data(solver, 1.7 * Z0, 50.0)]
+    got = []
+    for g in gs:
+        DT, stream, _ = solver._factor(g)
+        got.append((DT.clone(), stream.clone()))
+    for g, factor in zip(gs, got):
+        _check_factor(solver, g, *factor)
+    assert _rel(got[0][1], got[1][1]) > 1e-2
+
+
+def test_factor_graph_counts(cuda):
+    """An mslp through a new slab solver on the card captures the factor
+    once, at its first device step, and replays it at every step; nothing
+    runs eagerly."""
+    L = active_rijke_family()
+    solver = FusedSlabPencilSolver(L, cuda)
+    L._fused_solver = (L._stack(), solver)
+    timing.reset()
+    _, _, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
+    root, = [s for s in timing.spans() if s.id == s.request]
+    assert flag == 0
+    assert timing.counts("fused_slab.factor") == {
+        "capture": 1, "replay": root.attrs["device_steps"]}
+    _, _, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
+    counts = timing.counts("fused_slab.factor")
+    assert flag == 0 and counts["capture"] == 1
+    assert set(counts) == {"capture", "replay"}
+    timing.reset()
+
+
+def test_factor_graph_singular_raises(cuda):
+    """Solve data that leave a Dt_i singular (all zero: each slab's Dt is
+    0 on its rows) raise ``LinAlgError`` after the replay, as the batched
+    ``torch.linalg.solve`` did; the next replay on sound data gives the
+    same bits as before it."""
+    solver = FusedSlabPencilSolver(active_rijke_family(2, 46, 46), cuda)
+    g = _solve_data(solver, Z0)
+    DT, stream, _ = solver._factor(g)
+    first = (DT.clone(), stream.clone())
+    with pytest.raises(torch.linalg.LinAlgError, match="singular"):
+        solver._factor(torch.zeros_like(g))
+    DT, stream, _ = solver._factor(g)
+    assert torch.equal(DT, first[0]) and torch.equal(stream, first[1])
+
+
 @pytest.mark.parametrize("sides,N,m,cycles,tol", [
     (2, 256, 30, 2, 1e-5), (2, 512, 80, 1, 1e-5), (2, 1408, 80, 1, 1e-4),
     (1, 128, 10, 1, 1e-5)])

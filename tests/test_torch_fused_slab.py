@@ -55,6 +55,47 @@ def test_one_step_matches_jax():
     assert res_t.max() < 1e-5 and res_j.max() < 1e-5
 
 
+def test_cpu_factor_runs_eagerly():
+    """On the CPU the slab factor is the same recursion run eagerly: a
+    step counts one ``eager`` factor and builds no graph, and the step
+    still matches JAX's to 5e-7 relative (test_one_step_matches_jax)."""
+    import jax
+    Lj, Lt = _jax_family(), active_rijke_family()
+    n = Lt.size
+    one, zero = np.ones(n, np.float32), np.zeros(n, np.float32)
+    carries = tuple(jax.device_put(p) for p in (one, zero, one, zero))
+    dz_j, lam_j, _, _ = FusedSlabJax(Lj).step(complex(Z0), carries,
+                                              0.0 + 0.0j, True)
+    solver = FusedSlabPencilSolver(Lt, "cpu")
+    before = timing.counts("fused_slab.factor")
+    dz_t, lam_t, _, _ = solver.step(
+        complex(Z0), torch.ones(2, n, dtype=torch.complex64), 0.0 + 0.0j)
+    after = timing.counts("fused_slab.factor")
+    assert after.get("eager", 0) == before.get("eager", 0) + 1
+    assert after.get("capture") == before.get("capture")
+    assert after.get("replay") == before.get("replay")
+    assert solver._graph is None
+    assert abs(dz_t - dz_j) <= 5e-7 * abs(dz_j)
+    assert abs(lam_t - lam_j) <= 5e-7 * abs(lam_j)
+
+
+def test_singular_slab_raises():
+    """Solve data that leave a Dt_i singular (all zero) raise
+    ``LinAlgError`` on the CPU too, and the next factor on sound data
+    matches a fresh solver's."""
+    L = active_rijke_family()
+    solver, fresh = (FusedSlabPencilSolver(L, "cpu") for _ in range(2))
+    c, _ = solver.coefficients(complex(Z0))
+    _, g = solver.solve_data(torch.from_numpy(c),
+                             torch.zeros((), dtype=torch.complex128))
+    with pytest.raises(torch.linalg.LinAlgError, match="singular"):
+        solver._factor(torch.zeros_like(g))
+    DT, stream, scale = solver._factor(g)
+    DT_f, stream_f, scale_f = fresh._factor(g)
+    assert torch.equal(DT, DT_f) and torch.equal(stream, stream_f)
+    assert torch.equal(scale, scale_f)
+
+
 def test_mslp_matches_jax_host():
     """The slab engine end to end: port mslp (device engine on the CPU)
     against JAX host mslp, both flag 0, |Δω| ≤ 1e-8·|ω|

@@ -11,12 +11,22 @@ above ``FUSED_MAX_DIM`` (:mod:`.fused_local`).  The Newton step is
   float32 factorization;
 * the scatter into band panels [2, m, 3, s, s] (destinations are unique
   per entry, so ``index_put_`` without accumulation is exact);
-* the block-Thomas factorization as a Python loop of m batched
-  ``torch.linalg.solve`` / matmul steps on [2, s, s] complex64, which
-  produces the per-slab inverses Dt_i⁻¹ and the coupling stream
-  Wᵀ_i = (Dt_i⁻¹L_i)ᵀ, Cᵀ_i = (Dt_i⁻¹U_i)ᵀ;
+* the block-Thomas factorization (:func:`block_thomas_factor`): m
+  dependent steps a side on [s, s] complex64, each an LU with partial
+  pivoting and its refined inverse, which produce the per-slab inverses
+  Dt_i⁻¹ and the coupling stream Wᵀ_i = (Dt_i⁻¹L_i)ᵀ, Cᵀ_i = (Dt_i⁻¹U_i)ᵀ;
 * every inner solve is Dt⁻¹b followed by ONE launch of the block-Thomas
   kernel (:func:`..ops.slab_thomas.slab_thomas`, kernel K3).
+
+The first three run from the solve data to the stream without a host
+sync, into static buffers.  On a card they are one CUDA graph, captured
+at the solver's first step and replayed at every step after (the m steps
+are a few thousand small launches, which the host would otherwise issue
+one by one), with the two sides' recursions on two streams; on the CPU
+the same function runs eagerly.  The LU infos stay on the device until
+the step's one check after the factor.  Counter ``fused_slab.factor``:
+key ``"capture"`` once a solver on a card, ``"replay"`` each step there,
+``"eager"`` each step on the CPU.
 
 The precision split is the JAX package's: complex64 factorization and
 stream, complex128 refinement and quotients.
@@ -31,7 +41,8 @@ import torch
 
 from ..ops.slab_solve import SlabPartition
 from ..ops.slab_thomas import slab_thomas
-from ..utils.config import DEVICE_CDTYPE
+from ..utils.config import DEVICE_CDTYPE, TORCH_CDTYPE
+from ..utils.timing import count
 from .family import OperatorFamily
 from .pencil import PencilSolver, _pad0
 
@@ -80,38 +91,86 @@ class FusedSlabPencilSolver(PencilSolver):
                                  persistent=False)
         self.to(device)
 
-    def _factor(self, blk: torch.Tensor):
-        """Block-Thomas factorization of the [2, m, 3, s, s] band panels:
-        per-slab inverses DT [2, m, s, s] and the K3 stream [2, 2m, s, s]
-        (Wᵀ in forward order, then Cᵀ reversed)."""
-        m, s = self.m, self.s
-        eye = torch.eye(s, dtype=blk.dtype, device=blk.device).expand(2, s, s)
-        DT = blk.new_empty(2, m, s, s)
-        stream = blk.new_empty(2, 2 * m, s, s)
-        C = blk.new_zeros(2, s, s)
-        for i in range(m):
-            Lb, Db, Ub = blk[:, i, 0], blk[:, i, 1], blk[:, i, 2]
-            # padded rows/cols of the slab get a unit diagonal
-            Dt = Db - Lb @ C + torch.diag(self.pad[i])
-            Dtinv = torch.linalg.solve(Dt, eye)
-            C = Dtinv @ Ub
-            DT[:, i] = Dtinv
-            stream[:, i] = (Dtinv @ Lb).transpose(1, 2)
-            stream[:, 2 * m - 1 - i] = C.transpose(1, 2)
-        return DT, stream
+        # the factor's static buffers: its input, the band panels (zero
+        # off the fixed destinations) and its outputs
+        dev = self.device
+        self._g = torch.zeros(2, len(self.pattern[0][0]), dtype=TORCH_CDTYPE,
+                              device=dev)
+        self._blk = torch.zeros(2, m, 3, s, s, dtype=DEVICE_CDTYPE,
+                                device=dev)
+        self._DT = torch.empty(2, m, s, s, dtype=DEVICE_CDTYPE, device=dev)
+        self._stream = torch.empty(2, 2 * m, s, s, dtype=DEVICE_CDTYPE,
+                                   device=dev)
+        self._scale32 = torch.empty(2, n, dtype=torch.float32, device=dev)
+        self._info = torch.zeros(2, m, dtype=torch.int32, device=dev)
+        #: on a card, a stream a side: the two recursions are independent,
+        #: and each is a chain of launches too small to fill the card
+        self._sides = (tuple(torch.cuda.Stream(dev) for _ in range(2))
+                       if dev.type == "cuda" else None)
+        #: the factor's CUDA graph, captured at the first step on a card
+        self._graph = None
+
+    def _fill(self):
+        """From the solve data in ``_g``: per-side row equilibration in
+        complex128 before the cast, the scatter into the band panels and
+        each side's factorization (on a card, on the side's own stream),
+        into the static buffers.  No host sync."""
+        g = self._g
+        rm = self._ell(_pad0(g.abs())).amax(-1)            # [2, n]
+        scale = 1.0 / torch.where(rm == 0, 1.0, rm)
+        gs = (g * scale.gather(1, self.rows2)).to(DEVICE_CDTYPE)
+        self._blk.view(-1).index_put_((self.dest2.view(-1),), gs.view(-1))
+        self._scale32.copy_(scale)
+        cur = torch.cuda.current_stream(self.device) if self._sides else None
+        for side, st in enumerate(self._sides or (None, None)):
+            if st is not None:
+                st.wait_stream(cur)
+            with torch.cuda.stream(st):                # None: no-op
+                block_thomas_factor(self._blk[side], self.pad,
+                                    self._DT[side], self._stream[side],
+                                    self._info[side])
+        for st in self._sides or ():
+            cur.wait_stream(st)
+
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """The CUDA graph of :meth:`_fill`, after one eager pass on a side
+        stream that sets up the libraries' handles and workspaces."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._fill()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._fill()
+        return graph
+
+    def _factor(self, g: torch.Tensor):
+        """Factor both sides' solve data g [2, nnz]: the inverses DT
+        [2, m, s, s], K3's stream [2, 2m, s, s] and the float32 row
+        scales [2, n], static buffers that the next step overwrites.
+        Raises ``torch.linalg.LinAlgError`` where a Dt_i is singular."""
+        self._g.copy_(g)
+        if self.device.type == "cuda":
+            if self._graph is None:
+                self._graph = self._capture()
+                count("fused_slab.factor", key="capture")
+            self._graph.replay()
+            count("fused_slab.factor", key="replay")
+        else:
+            self._fill()
+            count("fused_slab.factor", key="eager")
+        if self._info.any():
+            side, i = (int(k) for k in self._info.nonzero()[0])
+            raise torch.linalg.LinAlgError(
+                f"slab factor: Dt of slab {i} (side {side}) is singular")
+        return self._DT, self._stream, self._scale32
 
     def solver(self, g: torch.Tensor):
         """Row-equilibrate, scatter and factor g; each solve of both sides
         is Dt⁻¹b and one K3 launch."""
         m, s = self.m, self.s
-        # per-side row equilibration in complex128, before the cast
-        rm = self._ell(_pad0(g.abs())).amax(-1)            # [2, n]
-        scale = 1.0 / torch.where(rm == 0, 1.0, rm)
-        gs = (g * scale.gather(1, self.rows2)).to(DEVICE_CDTYPE)
-        blk = gs.new_zeros(2 * m * 3 * s * s)
-        blk.index_put_((self.dest2.view(-1),), gs.view(-1))
-        DT, stream = self._factor(blk.view(2, m, 3, s, s))
-        scale32 = scale.to(torch.float32)
+        DT, stream, scale32 = self._factor(g)
 
         def solve_both(b):
             """Both sides' complex64 [2, n] UNSCALED rhs -> solutions (row
@@ -124,4 +183,40 @@ class FusedSlabPencilSolver(PencilSolver):
         return solve_both
 
 
-__all__ = ["FusedSlabPencilSolver", "SLAB_FUSED_MAX_STREAM"]
+def block_thomas_factor(blk, pad, DT, stream, info):
+    """Block-Thomas factorization of one side's band panels blk
+    [m, 3, s, s] (L_i, D_i, U_i of each slab; ``pad`` [m, s] marks the
+    padded rows): writes the per-slab inverses Dt_i⁻¹ into DT [m, s, s],
+    K3's stream into ``stream`` [2m, s, s] (Wᵀ in forward order, then Cᵀ
+    reversed) and each Dt_i's LU info into ``info`` [m] (nonzero:
+    singular).
+
+    Each Dt_i is inverted by an LU with partial pivoting, two triangular
+    solves against the identity and one refinement step
+    X ← X + X(I − Dt_i X) with its residual formed in complex128.  On a
+    card the first two are cuSOLVER's getrf and cuBLAS's trsm, which
+    neither synchronise the host nor allocate outside PyTorch's caching
+    allocator, so a CUDA graph can hold the recursion (the batched
+    ``torch.linalg.solve`` it replaced went to MAGMA, which does both).
+    At (2, 59, 256) on an H100 the unrefined inverse leaves the recursion
+    3× farther from its complex128 result than that solve did, the
+    refined one 50× nearer (a residual formed in complex64 only 10×)."""
+    m, s = blk.shape[0], blk.shape[-1]
+    eye = torch.eye(s, dtype=blk.dtype, device=blk.device)
+    eye128 = torch.eye(s, dtype=TORCH_CDTYPE, device=blk.device)
+    C = blk.new_zeros(s, s)
+    for i in range(m):
+        Lb, Db, Ub = blk[i]
+        # padded rows/cols of the slab get a unit diagonal
+        Dt = Db - Lb @ C + torch.diag(pad[i])
+        LU, piv, info[i] = torch.linalg.lu_factor_ex(Dt)
+        X = torch.linalg.lu_solve(LU, piv, eye)
+        E = eye128 - Dt.to(TORCH_CDTYPE) @ X.to(TORCH_CDTYPE)
+        Dtinv = torch.addmm(X, X, E.to(blk.dtype), out=DT[i])
+        C = Dtinv @ Ub
+        stream[i] = (Dtinv @ Lb).T
+        stream[2 * m - 1 - i] = C.T
+
+
+__all__ = ["FusedSlabPencilSolver", "SLAB_FUSED_MAX_STREAM",
+           "block_thomas_factor"]
