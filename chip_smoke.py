@@ -105,6 +105,8 @@ import time
 import numpy as np
 import torch
 
+from portbench.roofline_k2 import dense_gmres_work
+
 Z0 = 340 * 2 * np.pi
 #: JAX host mslp (complex128 sparse LU) on the 7,259-DOF active family
 OMEGA_7259 = 1086.2565809909638 + 375.8712163601356j
@@ -610,15 +612,6 @@ def _first_dense_step(L):
     return solver.operators(g), solver.preconditioned(b)
 
 
-def _gmres_flops(S, N, m, cycles):
-    """float32 operations of GMRES(m) from x0 = 0: m matvecs a cycle plus
-    one for the residual of each restart (the first cycle's is b), CGS2
-    dots and updates, norms and x += V y over the m basis vectors."""
-    matvecs = m * cycles + cycles - 1
-    per = 32 * N * m * (m + 1) // 2 + (m + 1) * 4 * N + 8 * N * m
-    return S * (matvecs * 8 * N * N + cycles * per)
-
-
 def _compare_k2(P, b, m, cycles, tol, label, extra=lambda x: "",
                 exact=False):
     """K2 against dense_gmres_ref on the card on one input (P [S, N, N],
@@ -680,8 +673,7 @@ def _compare_k2(P, b, m, cycles, tol, label, extra=lambda x: "",
     library = (f"torch.linalg.solve {library_ms:.4f} ms a call, "
                f"{library_dev:.4f} ms by CUDA events over 20 "
                "back-to-back calls")
-    bound_ms, bound_by = bound(8 * (P.numel() + 2 * b.numel()),
-                               _gmres_flops(S, N, m, cycles))
+    bound_ms, bound_by = bound(*dense_gmres_work(S, N, m, cycles))
     pl = plan(S, N, m, sm_count(P.device))
     step_us = dev_ms / ((m + 1) * cycles) * 1e3
     print(f"K2 (sides, N, m, cycles)=({S}, {N}, {m}, {cycles}) {label}, "

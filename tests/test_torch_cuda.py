@@ -377,6 +377,25 @@ def test_dense_mslp_on_card(cuda):
     assert timing.total("dense_gmres.twin_calls") == calls
 
 
+def test_dense_spans_on_card(cuda):
+    """The dense engine's records on the card: K2's launches keyed by the
+    launch shape (2, 512, 80, 1), three a device step, and one
+    ``bj_refresh`` span for each count of the block-Jacobi refresh, at
+    least one a request."""
+    L = active_rijke_family()
+    timing.reset()
+    _, _, flag = mslp(L, Z0, maxiter=30, tol=1e-11, device=cuda)
+    spans = timing.spans()
+    root, = [s for s in spans if s.id == s.request]
+    assert flag == 0 and root.attrs["engine"] == "FusedPencilSolver"
+    assert timing.counts("dense_gmres.launches", request=root.id) == {
+        (2, 512, 80, 1): 3 * root.attrs["device_steps"]}
+    assert timing.total("dense_gmres.twin_calls") == 0
+    refreshes = [s for s in spans if s.name == "bj_refresh"]
+    assert len(refreshes) == timing.total("fused_local.bj_refresh") >= 1
+    timing.reset()
+
+
 @pytest.fixture(scope="module")
 def reordered_437():
     """The reordered 437-DOF operator at ω = 2π·300 (host CSR)."""

@@ -22,9 +22,12 @@ package: a linear-algebra error there keeps the device iterate.
 Phases (``utils.timing``): ``fused_local.setup`` (the engine, once a
 family), ``fused_local.device_step`` (with the step's own, :mod:`.pencil`)
 and ``fused_local.polish_step`` with ``assemble`` (L(z), L′(z), M),
-``lu``, ``arnoldi`` (both shift-invert runs) and ``quotient``.  The
-request's front door gets the attributes ``engine`` (the engine's class),
-``device_steps`` and ``polish_steps``.
+``lu``, ``arnoldi`` (both shift-invert runs) and ``quotient``.  The dense
+engine's block-Jacobi refresh is a span ``bj_refresh`` under whichever
+phase calls it (``fused_local.device_step.coefficients`` at a step's
+start, the request itself after a step), counted in
+``fused_local.bj_refresh``.  The request's front door gets the attributes
+``engine`` (the engine's class), ``device_steps`` and ``polish_steps``.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..ops.dense_gmres import dense_gmres
 from ..ops.gmres import BatchedBlockDiagInv
 from ..ops.linsolve import factorize
 from ..utils.config import CDTYPE, DEVICE_CDTYPE
-from ..utils.timing import annotate, phase
+from ..utils.timing import annotate, count, phase
 from .eigs import eigs_shift_invert
 from .family import OperatorFamily, Solution
 from .fused_slab import FusedSlabPencilSolver
@@ -84,12 +87,14 @@ class FusedPencilSolver(PencilSolver):
     def refresh_bj(self, c: np.ndarray, sigma: complex):
         """Block-Jacobi inverses of both sides' A + σM at coefficients c,
         host complex128, kept on the device as complex64 [2, N/128, 128,
-        128]."""
-        data = c @ self._vals_host + sigma * self._m_data
-        dj = self.bj.inv(data[None])[0]
-        djH = self.bjH.inv(np.conj(data[self._perm])[None])[0]
-        self._dj = torch.from_numpy(np.stack([dj, djH]).astype(
-            np.complex64)).to(self.device)
+        128]; span ``bj_refresh``, counter ``fused_local.bj_refresh``."""
+        with phase("bj_refresh"):
+            data = c @ self._vals_host + sigma * self._m_data
+            dj = self.bj.inv(data[None])[0]
+            djH = self.bjH.inv(np.conj(data[self._perm])[None])[0]
+            self._dj = torch.from_numpy(np.stack([dj, djH]).astype(
+                np.complex64)).to(self.device)
+        count("fused_local.bj_refresh")
 
     @property
     def stale(self) -> bool:
@@ -186,7 +191,11 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     # the device loop only needs to land inside the Newton basin — the
     # complex128 host polish below supplies the last digits
     dev_tol = max(tol_s, 1e-5 * max(abs(z), 1.0))
-    while abs(z - z0) > dev_tol and n_it < maxiter:
+    # ... and leaves it at least the last iteration, so that every answer
+    # of this engine ends with a complex128 step (JAX: the device loop may
+    # take all maxiter iterations; ROADMAP.md Queue 3, F9)
+    dev_maxiter = max(maxiter - 1, 1)
+    while abs(z - z0) > dev_tol and n_it < dev_maxiter:
         if output:
             print(f"{n_it}\t{abs(lam):.3e}\t{abs(z - z0):.3e}\t{z / scale}")
         with phase("fused_local.device_step"):
@@ -225,6 +234,9 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
                 z0 = z
                 break
 
+    # a device loop that ran out of iterations ends at ITSOL_MAXITER, as
+    # when it took all maxiter, whatever its polish step does
+    exhausted = abs(z - z0) > dev_tol
     v, v_adj = solver.fetch_vectors(carries)
 
     # ---- host complex128 polish steps -----------------------------------
@@ -278,7 +290,7 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
 
     L.params[eig] = z
     L.params[aux] = lam
-    if n_it >= maxiter:
+    if n_it >= maxiter or exhausted:
         flag = ITSOL_MAXITER
     elif abs(lam) <= lam_tol:
         flag = ITSOL_CONVERGED

@@ -15,7 +15,8 @@ which rows of P stay in shared memory.
 * :func:`dense_gmres` takes the plain version only for tensors that lie on
   the CPU; for CUDA tensors it launches the kernel or raises.  It counts
   its launches and its CPU calls in ``utils.timing``'s counters
-  ``dense_gmres.launches`` and ``dense_gmres.twin_calls``.
+  ``dense_gmres.launches`` and ``dense_gmres.twin_calls``, keyed by the
+  launch shape (sides, N, m, cycles).
 """
 from __future__ import annotations
 
@@ -251,15 +252,16 @@ def dense_gmres(P: torch.Tensor, b: torch.Tensor, m: int,
     """x [sides, N] ≈ P⁻¹b by GMRES(m) with ``cycles`` restarts.  CPU
     tensors: plain version; CUDA tensors: one launch of the kernel."""
     _check(P, b, m, cycles)
+    shape = (*b.shape, m, cycles)
     if P.device.type == "cpu":
-        timing.count("dense_gmres.twin_calls")
+        timing.count("dense_gmres.twin_calls", key=shape)
         return dense_gmres_ref(P, b, m, cycles)
     if P.device.type != "cuda":
         raise ValueError(f"dense_gmres has no kernel for {P.device}")
     lib = build()["lib"]
     with torch.cuda.device(P.device):
         x = launch(lib, P, b, m, cycles)
-    timing.count("dense_gmres.launches")
+    timing.count("dense_gmres.launches", key=shape)
     return x
 
 
