@@ -18,6 +18,7 @@ from threadpoolctl import threadpool_limits
 import wavesandeigenvalues_jl_tpu.nlevp.algebra as algebra_jax
 import wavesandeigenvalues_jl_tpu.ops.linsolve as linsolve_jax
 import wavesandeigenvalues_jl_tpu_torch.nlevp.algebra as algebra
+import wavesandeigenvalues_jl_tpu_torch.nlevp.polish as polish
 import wavesandeigenvalues_jl_tpu_torch.ops.linsolve as linsolve
 from wavesandeigenvalues_jl_tpu.mesh.annular import \
     bloch_expand as bloch_expand_jax
@@ -31,6 +32,7 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
     FusedPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
+from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import DeviceLU
 
 
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
@@ -340,13 +342,19 @@ def test_sweep_matches_jax_and_mslp():
         assert res < 1e-10, (b, res)
 
 
+class _ZeroPivotLU(DeviceLU):
+    """A device factor with a zero pivot, as ``DeviceLU`` reports one."""
+    ok = False
+
+
 def test_sweep_polish_refusal():
     """JAX wraps the sweep's seed and polish in ``except Exception``; the
     port narrows it to (RuntimeError, LinAlgError).  With every polish
-    ``factorize`` raising RuntimeError (the seeds' factorizations pass),
-    both packages keep the device iterate: the same ω to 1e-9 relative and
-    within 1e-6 of the polished value.  A TypeError propagates from the
-    port, which restores L.active, L.mode and b."""
+    ``factorize`` raising RuntimeError (the seeds' factorizations pass)
+    and, in the port, the device factor its polish tries first reporting
+    a zero pivot, both packages keep the device iterate: the same ω to
+    1e-9 relative and within 1e-6 of the polished value.  A TypeError
+    propagates from the port, which restores L.active, L.mode and b."""
     bvals = [0.0, 1.0]
     kw = dict(tol=1e-10, scale=2 * np.pi, maxiter=25)
     lj, lt = (_family(p, _pair(p, nr=2, nphi=2, nz=4)[1], b="b")
@@ -368,8 +376,10 @@ def test_sweep_polish_refusal():
     try:
         mp.setattr(linsolve_jax, "factorize",
                    refusing(real_j, RuntimeError, calls_j))
-        mp.setattr(linsolve, "factorize",
-                   refusing(real_t, RuntimeError, calls_t))
+        refuse_t = refusing(real_t, RuntimeError, calls_t)
+        mp.setattr(linsolve, "factorize", refuse_t)        # the seeds
+        mp.setattr(polish, "factorize", refuse_t)
+        mp.setattr(polish, "DeviceLU", _ZeroPivotLU)
         kept_j = sweep_jax(lj, 1124.0, bvals, **kw)
         kept = bloch_mode_sweep(lt, 1124.0, bvals, device="cpu", **kw)
         assert len(calls_t) == len(calls_j) == 2 * len(bvals)
@@ -378,7 +388,9 @@ def test_sweep_polish_refusal():
             assert abs(s.params["ω"] - sj.params["ω"]) <= 1e-9 * abs(om)
             assert abs(s.params["ω"] - om) <= 1e-6 * abs(om)
 
-        mp.setattr(linsolve, "factorize", refusing(real_t, TypeError, []))
+        refuse_t = refusing(real_t, TypeError, [])
+        mp.setattr(linsolve, "factorize", refuse_t)
+        mp.setattr(polish, "factorize", refuse_t)
         lt.params["b"] = 0.5
         lt.mode, lt.active = "all", ["ω"]
         with pytest.raises(TypeError):

@@ -4,6 +4,8 @@ without jax it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -681,3 +683,87 @@ def test_householder_order3_on_card(cuda):
     om = sol.params[sol.eigval]
     assert (flag, n_it) == (0, 4)
     assert abs(om - OMEGA_437) <= 1e-10 * abs(OMEGA_437)
+
+
+#: the benchmark's 7,259-DOF configuration (cell ``rijke7259.mslp_map``)
+RIJKE_7259 = os.path.join(os.path.dirname(__file__), "..", "portbench",
+                          "configs", "rijke_tube_7259.json")
+
+
+def _polish_loop(L, z, v, w, device, tol):
+    """The fused engine's polish loop (``nlevp/fused_local.py``) from
+    (z, v, w): (z, v, w, converged, steps)."""
+    from wavesandeigenvalues_jl_tpu_torch.nlevp.polish import polish_step
+    for steps in range(1, 4):
+        dz, _, vh, wh = polish_step(L, z, v, w, device)
+        if not (np.isfinite(dz) and abs(dz) < 1e-2 * max(abs(z), 1.0)):
+            return z, v, w, False, steps
+        z, v, w = z + dz, vh, wh
+        if abs(dz) <= tol:
+            return z, v, w, True, steps
+    return z, v, w, False, 3
+
+
+def _residuals(L, om, v, w):
+    """‖L(ω)v‖/‖v‖ and ‖L(ω)ᴴw‖/‖w‖."""
+    A = L(om)
+    return (np.linalg.norm(A @ v) / np.linalg.norm(v),
+            np.linalg.norm(A.conj_transpose() @ w) / np.linalg.norm(w))
+
+
+def _polish_on_device_and_host(L, device, z0=Z0, tol=1e-11, maxiter=20):
+    """One mslp on ``device`` (device polish), the device iterate its
+    polish started from, and the polish loop run again from that iterate
+    factored on ``device`` and on the host.  Returns (mslp's flag and ω,
+    {side: (ω, v, w, converged, steps, counts of ``polish.factor``)})."""
+    import wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local as fused_local
+    from wavesandeigenvalues_jl_tpu_torch.nlevp import polish
+    first = {}
+    real = fused_local.polish_step
+
+    def recording(L_, z, v, w, dev):
+        first.setdefault("it", (z, v.copy(), w.copy()))
+        return real(L_, z, v, w, dev)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(fused_local, "polish_step", recording)
+        sol, _, flag = mslp(L, z0, maxiter=maxiter, tol=tol, device=device)
+        mp.undo()
+        out = {}
+        for side, cap in (("device", polish.POLISH_DEVICE_MAX_DIM),
+                          ("host", 0)):
+            mp.setattr(polish, "POLISH_DEVICE_MAX_DIM", cap)
+            timing.reset()
+            out[side] = (_polish_loop(L, *first["it"], device, tol)
+                         + (timing.counts("polish.factor"),))
+            mp.undo()
+    finally:
+        mp.undo()
+    return (flag, sol.params[sol.eigval]), out
+
+
+def test_polish_on_card_matches_host_at_7259(cuda):
+    """The polish at 7,259 DOF (the benchmark's configuration, slab
+    engine): from the device iterate of one mslp, factored on the card
+    (complex128 LU, one ``lu_solve`` an Arnoldi step) and on the host
+    (SuperLU), the polish converges in as many steps to ω within 1e-11
+    relative, each factor counted under its key, and both eigenvectors'
+    residuals ‖L(ω)v‖/‖v‖ lie within 10× of the host's.  The mslp itself
+    (device polish) ends with flag 0 at the same ω."""
+    import json
+    from portbench.problems import rijke_tube
+    with open(RIJKE_7259) as f:
+        cfg = json.load(f)
+    L = rijke_tube.port_family(rijke_tube.mesh(cfg), cfg)
+    assert L.size == cfg["dof"] == 7259
+    (flag, om), out = _polish_on_device_and_host(L, cuda)
+    om_d, v_d, w_d, conv_d, steps_d, counts_d = out["device"]
+    om_h, v_h, w_h, conv_h, steps_h, counts_h = out["host"]
+    assert flag == 0 and conv_d and conv_h and steps_d == steps_h
+    assert counts_d == {"device": steps_d} and counts_h == {"host": steps_h}
+    assert abs(om_d - om_h) <= 1e-11 * abs(om_h)
+    assert abs(om - om_h) <= 1e-11 * abs(om_h)
+    for r_d, r_h in zip(_residuals(L, om_d, v_d, w_d),
+                        _residuals(L, om_h, v_h, w_h)):
+        assert r_d <= 10 * r_h, (r_d, r_h)

@@ -3,9 +3,10 @@
 
 The JAX package stays beside this one as the reference; the port is held
 against it slice by slice (ROADMAP.md).  Host code (mesh, FEM tables, CSR,
-coefficient algebra, scipy polish) is numpy as in the JAX package; the
-device step is PyTorch, and every Pallas kernel on a ported path is a
-hand-written CUDA kernel under ``csrc/``.  The port never imports jax.
+coefficient algebra) is numpy as in the JAX package; the device step and
+the complex128 polish's LU are PyTorch, and every Pallas kernel on a
+ported path is a hand-written CUDA kernel under ``csrc/``.  The port never
+imports jax.
 
 Subpackages: ``mesh``, ``fem``, ``models``, ``nlevp``, ``ops``,
 ``parallel``, ``utils``, and ``native`` (the host C++ library).

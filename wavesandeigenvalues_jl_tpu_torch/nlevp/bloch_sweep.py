@@ -17,8 +17,9 @@ iteration:
   128 with an identity pad), and runs one batched inverse-iteration +
   two-sided Rayleigh-quotient step;
 * per-b Newton updates and convergence bookkeeping stay on the host;
-* a warm-started host complex128 polish pass supplies the final digits
-  per b (the scheme of :mod:`.fused_local`).
+* a warm-started complex128 polish pass supplies the final digits per b
+  (:func:`.polish.polish_step`, the step of :mod:`.fused_local`: L(z)
+  factored on ``device`` up to ``POLISH_DEVICE_MAX_DIM``).
 
 The precision split is the JAX package's: complex64 LU and carries.  The
 three Rayleigh sparse products are native complex128 where the JAX
@@ -45,6 +46,7 @@ from ..utils.config import CDTYPE, DEVICE_CDTYPE, TORCH_CDTYPE
 from ..utils.timing import phase
 from .family import AUX_OPERATOR, OperatorFamily, Solution
 from .pencil import _ell_ids, _pad0
+from .polish import polish_step
 
 #: the padded-N granularity of the batched LU
 PAD = 128
@@ -277,22 +279,8 @@ def bloch_mode_sweep(L: OperatorFamily, z0, b_values: Sequence[float],
                 try:
                     for _ in range(3):
                         with phase("bloch_sweep.polish_step"):
-                            L.params[eig] = z
-                            L.params[aux] = 0.0
-                            A = L(z)
-                            M = L.aux_weight()
-                            F = factorize(A, check=True, backend="host")
-                            lam_a, Vp = eigs_shift_invert(A, M, nev=1, v0=vi,
-                                                          m=8, factor=F)
-                            _, Wp = eigs_shift_invert(A, M, nev=1, v0=wi,
-                                                      m=8, factor=F,
-                                                      adjoint=True)
-                            lam_p = complex(lam_a[0])
-                            vh, wh = Vp[:, 0], Wp[:, 0]
-                            A1 = L(z, 1)
-                            lam_d = (np.vdot(wh, A1 @ vh)
-                                     / np.vdot(wh, M @ vh))
-                            dzp = -lam_p / lam_d
+                            dzp, lam_p, vh, wh = polish_step(L, z, vi, wi,
+                                                             st.device)
                         if not (np.isfinite(dzp)
                                 and abs(dzp) < 1e-2 * max(abs(z), 1.0)):
                             break
@@ -300,7 +288,7 @@ def bloch_mode_sweep(L: OperatorFamily, z0, b_values: Sequence[float],
                         vi, wi = vh, wh
                         lam[i] = lam_p
                         if abs(dzp) <= tol_s:
-                            if nan_dz[i]:   # rescued by the host polish
+                            if nan_dz[i]:   # rescued by the polish
                                 flag = ITSOL_CONVERGED
                             break
                 except (RuntimeError, np.linalg.LinAlgError):

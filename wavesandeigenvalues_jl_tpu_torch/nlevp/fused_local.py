@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``nlevp/fused_local.py``.  The host
 evaluates coefficients in complex128, the device runs one fused step per
-Newton iteration, and a complex128 host polish (sparse LU + shift-invert
-Arnoldi) supplies the last digits.
+Newton iteration, and a complex128 polish (:mod:`.polish`: an LU of L(z)
+on the device, SuperLU on the host above ``POLISH_DEVICE_MAX_DIM``, and
+shift-invert Arnoldi) supplies the last digits.
 
 Routing, as in the JAX package: n ≤ ``FUSED_MAX_DIM`` = 1,400 goes to the
 dense engine :class:`FusedPencilSolver`, whose inner solves are one launch
@@ -16,7 +17,7 @@ A non-finite device dz hands the iteration to the general engine
 names the step, as the JAX package falls back to its own.  Nothing else is
 caught: the JAX function also returns ``None`` where building the engine
 or a step raises; the port lets that error propagate, so a kernel that
-fails to build or launch raises.  The host polish is wrapped as in the JAX
+fails to build or launch raises.  The polish is wrapped as in the JAX
 package: a linear-algebra error there keeps the device iterate.
 
 Phases (``utils.timing``): ``fused_local.setup`` (the engine, once a
@@ -38,13 +39,12 @@ import torch
 
 from ..ops.dense_gmres import dense_gmres
 from ..ops.gmres import BatchedBlockDiagInv
-from ..ops.linsolve import factorize
 from ..utils.config import CDTYPE, DEVICE_CDTYPE
 from ..utils.timing import annotate, count, phase
-from .eigs import eigs_shift_invert
 from .family import OperatorFamily, Solution
 from .fused_slab import FusedSlabPencilSolver
 from .pencil import REFINE_SWEEPS, PencilSolver
+from .polish import polish_step
 
 #: inner-solve controls of the dense engine
 GMRES_M = 80   # GMRES(40) stagnates on the penalty-BC Helmholtz operators
@@ -239,14 +239,15 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
     exhausted = abs(z - z0) > dev_tol
     v, v_adj = solver.fetch_vectors(carries)
 
-    # ---- host complex128 polish steps -----------------------------------
+    # ---- complex128 polish steps ----------------------------------------
     # The device loop lands inside the Newton basin (dev_tol above); the
-    # last digits come from 1-2 warm-started host Newton steps (sparse LU
-    # + shift-invert — the reference's per-iteration machinery).  As in the
-    # JAX package, a polish step the host numerics refuse (SuperLU's
-    # RuntimeError, a singular dense LU, a LAPACK or ARPACK error) keeps
-    # the device iterate.  The polish is numpy and scipy on the host and
-    # touches no tensor, so this hides no kernel and no device fault.
+    # last digits come from 1-2 warm-started complex128 Newton steps
+    # (:func:`.polish.polish_step`: L(z) factored on the solver's device
+    # up to POLISH_DEVICE_MAX_DIM, on the host above, and shift-invert
+    # Arnoldi from the factor — the reference's per-iteration machinery).
+    # As in the JAX package, a polish step the numerics refuse (SuperLU's
+    # RuntimeError, a singular LU, a LAPACK error) keeps the device
+    # iterate; a fault of the device there (.polish.DeviceFault) raises.
     try:
         for _ in range(3):
             if n_it >= maxiter:
@@ -254,37 +255,18 @@ def try_fused_local(L: OperatorFamily, z, *, maxiter, tol, relax, lam_tol,
             n_pol += 1
             annotate(polish_steps=n_pol)
             with phase("fused_local.polish_step"):
-                with phase("assemble"):
-                    L.params[eig] = z
-                    L.params[aux] = 0.0
-                    A = L(z)
-                    A1 = L(z, 1)
-                    M = L.aux_weight()
-                with phase("lu"):
-                    F = factorize(A, check=True, backend="host")
-                with phase("arnoldi"):
-                    lam_arr, V = eigs_shift_invert(A, M, nev=1, v0=v, m=8,
-                                                   factor=F)
-                    lam_adj, W = eigs_shift_invert(A, M, nev=1, v0=v_adj,
-                                                   m=8, factor=F,
-                                                   adjoint=True)
-                with phase("quotient"):
-                    lam_p = complex(lam_arr[0])
-                    vh = V[:, 0]
-                    wh = W[:, 0]
-                    den = np.vdot(wh, M @ vh)
-                    lam_d = np.vdot(wh, A1 @ vh) / den
-                    dz = -lam_p / lam_d
-                if not (np.isfinite(dz)
-                        and abs(dz) < 1e-2 * max(abs(z), 1.0)):
-                    break
-                z0 = z
-                z = z + dz
-                v, v_adj = vh, wh
-                lam = lam_p
-                n_it += 1
-                if abs(dz) <= tol_s:
-                    break
+                dz, lam_p, vh, wh = polish_step(L, z, v, v_adj,
+                                                solver.device)
+            if not (np.isfinite(dz)
+                    and abs(dz) < 1e-2 * max(abs(z), 1.0)):
+                break
+            z0 = z
+            z = z + dz
+            v, v_adj = vh, wh
+            lam = lam_p
+            n_it += 1
+            if abs(dz) <= tol_s:
+                break
     except (RuntimeError, np.linalg.LinAlgError):
         pass                                      # keep the device result
 

@@ -1,4 +1,5 @@
-"""Factorizations on the device for the general local engine.
+"""Factorizations on the device for the general local engine (and, as
+:class:`DeviceLU`, for the fused engines' polish, :mod:`..nlevp.polish`).
 
 Counterpart of the JAX package's ``ops/device_solve.py``: the reference's
 UMFPACK factorization and its triangular re-solves (Householder.jl:100-101,
@@ -10,7 +11,8 @@ perturbation.jl:385) on the card, selected by
   ``device``, row-equilibrated (B = D⁻¹A; the Y = 1e15 penalty rows span 16
   orders of magnitude) and factored once with ``torch.linalg.lu_factor_ex``;
   every direct, transpose or conjugate-transpose re-solve is one
-  ``lu_solve`` there, followed by the host complex128 refinement.  The
+  ``lu_solve`` there, followed by the host complex128 refinement (with
+  ``refine=False``, as the polish asks, one ``lu_solve`` and none).  The
   direct and adjoint shift-invert Arnoldi of the local engine run on the
   card from the same factors (:meth:`DeviceLU.dual_arnoldi`).
 * :class:`DeviceGMRES`: for dimensions above ``DEVICE_DENSE_MAX_DIM``:
@@ -162,9 +164,15 @@ class _RefinedFactorization(Factorization):
 
     ``last_relres``: the relative residual the last refined solve reached
     (the largest of a panel's columns).  The JAX classes compute it and
-    return the best iterate without it; nothing here acts on it."""
+    return the best iterate without it; nothing here acts on it.
+
+    ``refine``: where False, ``solve`` is one device solve and no host
+    refinement, the work of one SuperLU solve, for callers whose own
+    iteration corrects the solves (the shift-invert Arnoldi of
+    :mod:`..nlevp.polish`)."""
 
     _last_relres = float("nan")
+    refine = True
 
     @property
     def last_relres(self) -> float:
@@ -172,6 +180,9 @@ class _RefinedFactorization(Factorization):
 
     def solve(self, b, trans: str = "N"):
         b = np.asarray(b, dtype=CDTYPE)
+        if not self.refine:
+            return self._solve_dev(b.reshape(self.n, -1),
+                                   trans).reshape(b.shape)
         X, self._last_relres = _refined_solve(
             lambda R: self._solve_dev(R, trans),
             _host_matvec(self._A_host, trans), b.reshape(self.n, -1))
@@ -184,23 +195,24 @@ class DeviceLU(_RefinedFactorization):
     conjugate-transpose re-solves; the shift-invert Arnoldi and its
     adjoint share it."""
 
-    def __init__(self, A: Union[CSR, np.ndarray], device="cuda"):
+    def __init__(self, A: Union[CSR, np.ndarray], device="cuda",
+                 refine: bool = True):
         self._A_host = A
         self.device = torch.device(device)
-        with phase("device_solve.factor"):
-            dense = _dense_on_device(A, self.device)
-            self.n = dense.shape[0]
-            # row equilibration: factor B = D⁻¹A
-            scale = dense.abs().amax(dim=1)
-            self._row_scale = torch.where(scale == 0,
-                                          torch.ones_like(scale), scale)
-            LU, piv, info = torch.linalg.lu_factor_ex(
-                dense / self._row_scale[:, None])
-            del dense
-            # a zero pivot (info > 0) or a non-finite factor: singular
-            du = LU.diagonal().abs()
-            self._ok = bool((info == 0) & (torch.isfinite(du)
-                                           & (du > 0)).all())
+        self.refine = refine
+        dense = _dense_on_device(A, self.device)
+        self.n = dense.shape[0]
+        # row equilibration: factor B = D⁻¹A
+        scale = dense.abs().amax(dim=1)
+        self._row_scale = torch.where(scale == 0,
+                                      torch.ones_like(scale), scale)
+        LU, piv, info = torch.linalg.lu_factor_ex(
+            dense / self._row_scale[:, None])
+        del dense
+        # a zero pivot (info > 0) or a non-finite factor: singular
+        du = LU.diagonal().abs()
+        self._ok = bool((info == 0) & (torch.isfinite(du)
+                                       & (du > 0)).all())
         self._fac = (LU, piv)
 
     @property
@@ -316,12 +328,13 @@ class DeviceGMRES(_RefinedFactorization):
 def device_factorize(A: Union[CSR, np.ndarray], backend: str = "device",
                      device="cuda"):
     """Factorization on a device backend: dense LU up to
-    ``DEVICE_DENSE_MAX_DIM``, GMRES above (or forced by backend
-    "device_lu" / "device_gmres"), on ``device``."""
+    ``DEVICE_DENSE_MAX_DIM`` (phase ``device_solve.factor``), GMRES above
+    (or forced by backend "device_lu" / "device_gmres"), on ``device``."""
     n = A.shape[0]
     if backend == "device_lu" or (backend == "device"
                                   and n <= DEVICE_DENSE_MAX_DIM):
-        return DeviceLU(A, device)
+        with phase("device_solve.factor"):
+            return DeviceLU(A, device)
     if not isinstance(A, CSR):
         A = CSR.from_dense(np.asarray(A, CDTYPE))
     return DeviceGMRES(A, device=device)

@@ -5,9 +5,10 @@ is numpy/scipy: SuperLU for large sparse systems, LAPACK dense LU below
 ``SPARSE_LU_MIN_DIM``, a least-squares solve for the exactly singular
 L(0,0) of the perturbation recurrence.  The other backends ("device",
 "device_lu", "device_gmres", ``utils.config``) go to
-:func:`.device_solve.device_factorize`, which factors on ``device``.  The
-complex128 polish after the fused device loop (:mod:`..nlevp.fused_local`)
-and Beyn's "host" backend ask for "host" whatever the session default.
+:func:`.device_solve.device_factorize`, which factors on ``device``.  Beyn's
+"host" backend, and the complex128 polish after the fused device loop
+(:mod:`..nlevp.polish`) above its device limit or where its device factor
+fails, ask for "host" whatever the session default.
 """
 from __future__ import annotations
 

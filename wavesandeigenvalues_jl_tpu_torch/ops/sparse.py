@@ -122,9 +122,16 @@ class CSR:
         return out
 
     def conj_transpose(self) -> "CSR":
-        rows, cols, vals = self.to_coo()
-        return CSR.from_coo(cols, rows, np.conj(vals),
-                            (self.shape[1], self.shape[0]))
+        # SciPy's CSR -> CSC conversion (a counting sort), duplicates summed
+        # and stored zeros dropped: from_coo's arrays without its sort (the
+        # polish's adjoint Arnoldi transposes M once a step)
+        import scipy.sparse as sp
+        T = sp.csr_matrix((np.conj(self.data), self.indices, self.indptr),
+                          shape=self.shape).tocsc()
+        T.sum_duplicates()
+        T.eliminate_zeros()
+        return CSR(T.indptr.astype(np.int64), T.indices.astype(IDTYPE),
+                   T.data.astype(CDTYPE), (self.shape[1], self.shape[0]))
 
     def scaled(self, a) -> "CSR":
         return CSR(self.indptr, self.indices, self.data * a, self.shape)

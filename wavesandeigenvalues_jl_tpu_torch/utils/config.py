@@ -3,7 +3,9 @@
 Two numeric regimes, as in the JAX package:
 
 * **reference precision** (numpy complex128) for the host orchestration:
-  mesh, FEM tables, CSR, the coefficient algebra and the scipy polish;
+  mesh, FEM tables, CSR, the coefficient algebra and the polish's
+  Arnoldi and quotients (its LU is complex128 on the device,
+  :mod:`..nlevp.polish`);
 * **device precision** for the device step: complex64 for the inner
   solvers (the slab factorization and the block-Thomas kernel, the dense
   GMRES kernel), complex128 for the residual refinement and the Rayleigh
