@@ -105,6 +105,8 @@ import time
 import numpy as np
 import torch
 
+from portbench.roofline import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S, bound_s,
+                                slab_thomas_work)
 from portbench.roofline_k2 import dense_gmres_work
 
 Z0 = 340 * 2 * np.pi
@@ -364,9 +366,6 @@ J_SAME_RTOL, J_RELOAD_RTOL = 1e-12, 1e-14
 #: is complex128 throughout); K3's sharded dense contour against the
 #: unsharded one, relative to |ω|
 K_ROW_PARTS, K1_ROW_RTOL, K3_DENSE_RTOL = 4, 1e-12, 1e-12
-#: published peaks of one H100 SXM (HBM3 bandwidth, dense FP32 rate)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 
 
 def fail(msg):
@@ -380,11 +379,10 @@ def check(cond, msg):
 
 
 def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
-    the float32 operations over the non-tensor fp32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): :func:`portbench.roofline.bound_s` in ms, and
+    which of the bytes or the operations sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S
+    return bound_s(nbytes, flops) * 1e3, "bytes" if by_bytes else "operations"
 
 
 def phase_device():
@@ -559,10 +557,7 @@ def _compare_k3(st, b, label, exact=False):
     ms = _median_ms(lambda: slab_thomas(st, b))
     dev_ms = device_ms(lambda: slab_thomas(st, b))
     plain_ms = _median_ms(lambda: slab_thomas_ref(st, b))
-    # stream read once, bt read once, x written once; 8 flops per
-    # complex multiply-add of the 2m [1,s]x[s,s] products
-    bound_ms, bound_by = bound(
-        8 * (st.numel() + 2 * b.numel()), 8 * sides * 2 * m * s * s)
+    bound_ms, bound_by = bound(*slab_thomas_work(sides, m, s))
     gbs = sides * 2 * m * s * s * 8 / (dev_ms * 1e-3) / 1e9
     print(f"K3 (sides, m, s)=({sides}, {m}, {s}) {label}: max abs err over "
           f"{REPEATS} launches {err:.3e} rel {rel:.3e} (tol "

@@ -12,8 +12,6 @@ import importlib
 import numpy as np
 import pytest
 import scipy.sparse as sp
-import torch
-from threadpoolctl import threadpool_limits
 
 import wavesandeigenvalues_jl_tpu.nlevp.algebra as algebra_jax
 import wavesandeigenvalues_jl_tpu.ops.linsolve as linsolve_jax
@@ -34,6 +32,8 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import DeviceLU
 
+from port_threads import one_thread  # noqa: F401
+
 
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
 DSCRP = {"Interior": ("interior", ()), "Outlet": ("admittance", ("Y", 1e15))}
@@ -45,23 +45,6 @@ UNIT_FULL_HZ = 1e-8
 #: eigenvector residual bar of tests/test_bloch.py:96
 RES_TOL = 1e-12
 MSLP_KW = dict(tol=1e-11, scale=2 * np.pi, maxiter=25)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One BLAS/OpenMP thread and one torch thread while this module runs:
-    other test workers share the cores, and torch's batched CPU LU with
-    two or more intra-op threads corrupts its pivots and hangs from
-    n ≈ 192 on (the full P2 annulus's slabs are 256 wide; see
-    parallel/dist_beyn.py).  Set here, not at import: a test process
-    imports every test module, and each sets its own thread count."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with threadpool_limits(1):
-            yield
-    finally:
-        torch.set_num_threads(saved)
 
 
 def _mod(pkg, name):

@@ -26,14 +26,14 @@ from wavesandeigenvalues_jl_tpu_torch.ops.reorder import (
     bandwidth, cuthill_mckee, cuthill_mckee_numpy, permute_csr)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
+from port_threads import one_thread  # noqa: F401
+
 
 def _counts(kernel):
     """(launches, plain calls) of a kernel wrapper so far."""
     return (timing.total(f"{kernel}.launches"),
             timing.total(f"{kernel}.twin_calls"))
 
-
-torch.set_num_threads(2)
 
 OMEGA = 2 * np.pi * 300.0
 

@@ -41,6 +41,8 @@ from wavesandeigenvalues_jl_tpu_torch.ops.slab_solve import (SlabPartition,
 from wavesandeigenvalues_jl_tpu_torch.parallel import (beyn_batched,
                                                        matfree_moments)
 
+from port_threads import one_thread  # noqa: F401
+
 #: the contour of tests/test_slab_solve.py:86-88: 150–1000 Hz at ±5 Hz
 GAMMA = [2 * np.pi * (150 - 5j), 2 * np.pi * (1000 - 5j),
          2 * np.pi * (1000 + 5j), 2 * np.pi * (150 + 5j)]
@@ -48,15 +50,6 @@ BEYN_KW = dict(l=8, N=24, rtol=1e-12, res_tol=1e-6)
 #: the QEP's square and its five eigenvalues inside (tutorial_00)
 GAMMA_QEP = [-2 - 2j, 2 - 2j, 2 + 2j, -2 + 2j]
 QEP_INSIDE = (1j, -1j, 1.0, 0.5, 1.0 / 3.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread while this module runs: the host Beyn's 96
-    small dense LUs (n = 437) on the default eight threads took 146 s
-    instead of 1.9 s with the cores shared by other test workers."""
-    with threadpool_limits(1):
-        yield
 
 
 def _families(n_rings=2, nz_cold=10, nz_hot=10):

@@ -17,14 +17,14 @@ from wavesandeigenvalues_jl_tpu_torch.ops.gmres import (BatchedBlockDiagInv,
                                                         gmres_test_problem)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
+from port_threads import one_thread  # noqa: F401
+
 
 def _counts(kernel):
     """(launches, plain calls) of a kernel wrapper so far."""
     return (timing.total(f"{kernel}.launches"),
             timing.total(f"{kernel}.twin_calls"))
 
-
-torch.set_num_threads(2)
 
 
 def test_ref_matches_pallas_interpret():

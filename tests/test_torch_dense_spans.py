@@ -5,13 +5,14 @@ kernel K2's calls keyed by their shape.  The same keys on the card are
 checked in ``tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
-import torch
 
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_family
 from wavesandeigenvalues_jl_tpu_torch.nlevp import mslp
 from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import (
     GMRES_CYCLES, GMRES_M, FusedPencilSolver)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
+
+from port_threads import one_thread  # noqa: F401
 
 Z0 = 340 * 2 * np.pi
 REFRESH = "fused_local.bj_refresh"
@@ -22,28 +23,22 @@ POINTS = ((1.0, 0.001), (0.5, 0.0015))
 @pytest.fixture(scope="module")
 def solved():
     """The span records and counters of two dense mslp requests on one
-    family, with torch at one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        L = active_rijke_family()
-        timing.reset()
-        flags = []
-        for n, tau in POINTS:
-            L.params["n"], L.params["τ"] = n, tau
-            flags.append(mslp(L, Z0, maxiter=20, tol=1e-11, device="cpu")[2])
-        spans = timing.spans()
-        counted = {name: timing.counts(name) for name in
-                   (REFRESH, "dense_gmres.twin_calls",
-                    "dense_gmres.launches")}
-        counted["total"] = timing.total("dense_gmres.twin_calls")
-        roots = [s for s in spans if s.id == s.request]
-        by_request = {r.id: {name: timing.counts(name, request=r.id)
-                             for name in counted if name != "total"}
-                      for r in roots}
-        timing.reset()
-    finally:
-        torch.set_num_threads(threads)
+    family."""
+    L = active_rijke_family()
+    timing.reset()
+    flags = []
+    for n, tau in POINTS:
+        L.params["n"], L.params["τ"] = n, tau
+        flags.append(mslp(L, Z0, maxiter=20, tol=1e-11, device="cpu")[2])
+    spans = timing.spans()
+    counted = {name: timing.counts(name) for name in
+               (REFRESH, "dense_gmres.twin_calls", "dense_gmres.launches")}
+    counted["total"] = timing.total("dense_gmres.twin_calls")
+    roots = [s for s in spans if s.id == s.request]
+    by_request = {r.id: {name: timing.counts(name, request=r.id)
+                         for name in counted if name != "total"}
+                  for r in roots}
+    timing.reset()
     return L, flags, spans, roots, counted, by_request
 
 
@@ -109,18 +104,13 @@ def test_last_iteration_is_left_to_the_polish(engine, maxiter):
     from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
         FusedSlabPencilSolver
     from wavesandeigenvalues_jl_tpu_torch.nlevp.solvers import ITSOL_MAXITER
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        L = active_rijke_family()
-        if engine == "slab":
-            L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, "cpu"))
-        timing.reset()
-        _, n_it, flag = mslp(L, Z0, maxiter=maxiter, tol=1e-11, device="cpu")
-        root, = [s for s in timing.spans() if s.id == s.request]
-        timing.reset()
-    finally:
-        torch.set_num_threads(threads)
+    L = active_rijke_family()
+    if engine == "slab":
+        L._fused_solver = (L._stack(), FusedSlabPencilSolver(L, "cpu"))
+    timing.reset()
+    _, n_it, flag = mslp(L, Z0, maxiter=maxiter, tol=1e-11, device="cpu")
+    root, = [s for s in timing.spans() if s.id == s.request]
+    timing.reset()
     assert root.attrs["engine"] == type(L._fused_solver[1]).__name__
     assert flag == ITSOL_MAXITER and max(maxiter - 1, 1) <= n_it <= maxiter
     assert root.attrs["device_steps"] == max(maxiter - 1, 1)

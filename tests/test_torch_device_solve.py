@@ -8,7 +8,6 @@ here (JAX's device backends do on every device but a TPU); each test runs
 the JAX function and the port on the same seeded inputs."""
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
 import scipy.linalg as sla
 import torch
 
@@ -38,16 +37,8 @@ from wavesandeigenvalues_jl_tpu_torch.ops.sparse import CSR
 from wavesandeigenvalues_jl_tpu_torch.utils.config import (set_solve_backend,
                                                            solve_backend)
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread while this module runs: its many small dense
-    factorizations crawl on the default threads when other test workers
-    share the cores (as in tests/test_torch_contour.py)."""
-    with threadpool_limits(1):
-        yield
 
 TRANSES = ("N", "T", "H")
 

@@ -12,8 +12,6 @@ import math
 import numpy as np
 import pytest
 import scipy.sparse as sp
-from threadpoolctl import threadpool_limits
-import torch
 
 import wavesandeigenvalues_jl_tpu.models as models_jax
 import wavesandeigenvalues_jl_tpu.nlevp as nlevp_jax
@@ -27,15 +25,7 @@ from wavesandeigenvalues_jl_tpu_torch.mesh.generate import rijke_mesh
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import (
     GAMMA, Q02U0, RHO, active_rijke_setup)
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread while this module runs (its many small dense
-    solves crawl on the default threads beside other test workers)."""
-    with threadpool_limits(1):
-        yield
+from port_threads import one_thread  # noqa: F401
 
 
 Z0 = 340 * 2 * np.pi

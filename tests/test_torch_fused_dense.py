@@ -20,7 +20,7 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_local import \
     FusedPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 Z0 = 340 * 2 * np.pi
 #: JAX host mslp on this family (complex128 sparse LU), flag 0

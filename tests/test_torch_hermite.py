@@ -9,8 +9,6 @@ import importlib
 
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
-import torch
 
 import wavesandeigenvalues_jl_tpu.fem.elements as fel_jax
 import wavesandeigenvalues_jl_tpu_torch.fem.elements as fel
@@ -19,15 +17,9 @@ import wavesandeigenvalues_jl_tpu_torch.nlevp as nlevp
 from wavesandeigenvalues_jl_tpu.mesh.generate import box_mesh as box_mesh_jax
 from wavesandeigenvalues_jl_tpu_torch.mesh.generate import box_mesh
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    with threadpool_limits(1):
-        yield
 
 
 def _mod(pkg, name):

@@ -17,6 +17,8 @@ from wavesandeigenvalues_jl_tpu_torch.mesh import (Mesh, color_domains,
 from wavesandeigenvalues_jl_tpu_torch.mesh.generate import (box_mesh,
                                                             rijke_mesh)
 
+from port_threads import one_thread  # noqa: F401
+
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
 MESH_ATTRS = ("points", "lines", "triangles", "tetrahedra")
 

@@ -9,8 +9,6 @@ TPU).  Each test runs both packages on the same inputs and states its
 tolerance."""
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
-import torch
 
 import wavesandeigenvalues_jl_tpu.nlevp as nlevp_jax
 import wavesandeigenvalues_jl_tpu.nlevp.fused_local as fused_local_jax
@@ -24,16 +22,8 @@ from wavesandeigenvalues_jl_tpu_torch.models.rijke import (
 from wavesandeigenvalues_jl_tpu_torch.nlevp.pencil import PencilSolver
 from wavesandeigenvalues_jl_tpu_torch.utils import config
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread while this module runs: its many small dense
-    factorizations crawl on the default threads when other test workers
-    share the cores (as in tests/test_torch_contour.py)."""
-    with threadpool_limits(1):
-        yield
 
 Z0 = 340 * 2 * np.pi
 CLASSIC = ("inveriter", "lancaster", "rf2s", "traceiter", "mehrmann",

@@ -4,11 +4,10 @@ import importlib
 
 import numpy as np
 import pytest
-import torch
 
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_setup
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
 

@@ -31,7 +31,7 @@ from wavesandeigenvalues_jl_tpu_torch.ops.sparse import (
     CSR, NATIVE_DEDUP_MIN, coo_sum_duplicates, coo_sum_duplicates_numpy)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 #: the F8 patterns: the active Rijke family's P1 operator at 437, 1,369
 #: and 3,843 DOF

@@ -17,7 +17,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 from threadpoolctl import threadpool_limits
 
 from wavesandeigenvalues_jl_tpu.mesh.generate import \
@@ -46,18 +45,10 @@ from wavesandeigenvalues_jl_tpu_torch.parallel import (beyn_batched,
                                                        dist_beyn,
                                                        matfree_moments)
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 #: the 1-D tube's contour around its first cluster (test_panel_solve.py:60)
 GAMMA_1D = [0.5 - 0.5j, 2.5 - 0.5j, 2.5 + 1.0j, 0.5 + 1.0j]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_blas_threads():
-    """Two BLAS/OpenMP threads while this module runs (other test workers
-    share the cores)."""
-    with threadpool_limits(2):
-        yield
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,6 @@ import torch.distributed as dist
 from jax import shard_map
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as JP
-from threadpoolctl import threadpool_limits
 from torch.distributed.device_mesh import init_device_mesh
 
 from wavesandeigenvalues_jl_tpu.nlevp import gallery as gallery_jax
@@ -35,21 +34,11 @@ from wavesandeigenvalues_jl_tpu_torch.parallel import (dist_beyn, dist_solve,
                                                        dist_spmv, multihost,
                                                        partition, scaling)
 
+from port_threads import one_thread  # noqa: F401
+
 #: the twins' bars: the JAX tests' own (tests/test_dist_solve.py) for
 #: solutions and modes, 1e-12 between the two packages' products
 SOLVE_RTOL, MODE_ATOL, PRODUCT_ATOL = 1e-8, 1e-7, 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch intra-op thread and one BLAS thread while this module
-    runs: the sharded GMRES's many small tensor operations took 5× longer
-    with the default threads on cores shared by other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def test_init_multihost_noop_without_config(monkeypatch):

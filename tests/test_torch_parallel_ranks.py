@@ -20,6 +20,8 @@ from wavesandeigenvalues_jl_tpu.parallel import dist_spmv as dist_spmv_jax
 from wavesandeigenvalues_jl_tpu.parallel import partition as partition_jax
 from wavesandeigenvalues_jl_tpu_torch.parallel.multihost import run_world
 
+from port_threads import one_thread  # noqa: F401
+
 #: the body each rank runs (written next to the npz, imported by the ranks)
 BODY = '''
 import numpy as np

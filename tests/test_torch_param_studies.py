@@ -10,8 +10,6 @@ import warnings
 
 import numpy as np
 import pytest
-import torch
-from threadpoolctl import threadpool_limits
 
 import wavesandeigenvalues_jl_tpu.nlevp as nlevp_jax
 import wavesandeigenvalues_jl_tpu_torch.nlevp as nlevp
@@ -27,19 +25,11 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp import (
     multipoint_pade, newton_polynomial, pade, perturb_fast, poly_roots,
     polyval, taylor_shift, track_branch)
 
+from port_threads import one_thread  # noqa: F401
+
 #: the JAX module (its package exports a function of the same name)
 pade_jax = importlib.import_module("wavesandeigenvalues_jl_tpu.nlevp.pade")
-torch.set_num_threads(2)
-
 Z0 = 340 * 2 * np.pi
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread while this module runs (other test workers
-    share the cores)."""
-    with threadpool_limits(1):
-        yield
 
 
 def _taylor_of_poly(c, z0, n):

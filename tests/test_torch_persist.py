@@ -12,8 +12,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
-from threadpoolctl import threadpool_limits
 
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import active_rijke_setup
 from wavesandeigenvalues_jl_tpu_torch.nlevp import (OperatorFamily, Solution,
@@ -25,20 +23,13 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp import (OperatorFamily, Solution,
                                                     read_solution, read_toml,
                                                     save, save_family_toml)
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 PKGS = ("wavesandeigenvalues_jl_tpu", "wavesandeigenvalues_jl_tpu_torch")
 JAX, PORT = PKGS
 #: the noise-free fit of tests/test_fitting.py:60-64 (path J2's)
 FIT_FREQS = np.linspace(100, 600, 120)
 FIT_TAU = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_blas_thread():
-    """One BLAS/OpenMP thread: host LAPACK beside other test workers."""
-    with threadpool_limits(1):
-        yield
 
 
 def _mod(pkg, name):

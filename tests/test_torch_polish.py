@@ -30,7 +30,7 @@ from wavesandeigenvalues_jl_tpu_torch.ops.device_solve import DeviceLU
 from wavesandeigenvalues_jl_tpu_torch.ops.sparse import CSR, NATIVE_DEDUP_MIN
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 Z0 = 340 * 2 * np.pi
 #: the tolerance of the JAX package's tests/test_fused_slab.py:47
@@ -156,9 +156,12 @@ def test_device_polish_matches_host(monkeypatch, engine):
     """The polish factored on the device (torch's LU on CPU tensors, at n
     = 437 below POLISH_DEVICE_MAX_DIM) and on the host (SuperLU's dense
     LAPACK below SPARSE_LU_MIN_DIM, with the limit patched to 0) from the
-    same device loop: ω within 1e-12·|ω|, the same flag and polish steps,
-    and the counter ``polish.factor`` keyed ``device``, then ``host``,
-    once a step."""
+    same device loop: ω within 1e-12·|ω|, the same flag, polish steps
+    within one of each other, and the counter ``polish.factor`` keyed
+    ``device``, then ``host``, once a step.  The two factors' last |dz|
+    lie near ``tol`` (1e-11 on |ω| ≈ 1.1e3, some forty ulps of ω), so whether
+    a third step is taken depends on rounding that varies with the BLAS
+    and torch thread counts."""
     L = _family(engine)
     assert L.size <= polish.POLISH_DEVICE_MAX_DIM
     om, flag, steps, counts = _solve(L)
@@ -166,7 +169,7 @@ def test_device_polish_matches_host(monkeypatch, engine):
     monkeypatch.setattr(polish, "POLISH_DEVICE_MAX_DIM", 0)
     om_h, flag_h, steps_h, counts_h = _solve(L)
     assert counts_h == {"host": steps_h}
-    assert flag == flag_h == 0 and steps == steps_h
+    assert flag == flag_h == 0 and abs(steps - steps_h) <= 1
     assert abs(om - om_h) <= 1e-12 * abs(om_h)
 
 

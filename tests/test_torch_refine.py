@@ -20,6 +20,8 @@ from wavesandeigenvalues_jl_tpu_torch.mesh import (box_mesh,
 from wavesandeigenvalues_jl_tpu_torch.models.rijke import (
     large_operator_family, passive_rijke_setup)
 
+from port_threads import one_thread  # noqa: F401
+
 OMEGA = 2 * np.pi * 300.0
 RIJKE = dict(n_rings=2, nz_cold=10, nz_hot=10)
 BOX = dict(lx=1.0, ly=0.7, lz=0.4, nx=3, ny=2, nz=2)

@@ -14,7 +14,7 @@ from wavesandeigenvalues_jl_tpu_torch.ops.slab_thomas import (slab_thomas,
                                                                slab_thomas_ref)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 #: float32 sums taken in another order over a 2m-step recursion
 RTOL = 1e-5

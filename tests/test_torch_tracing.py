@@ -15,7 +15,7 @@ from wavesandeigenvalues_jl_tpu_torch.nlevp.fused_slab import \
     FusedSlabPencilSolver
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
-torch.set_num_threads(2)
+from port_threads import one_thread  # noqa: F401
 
 Z0 = 340 * 2 * np.pi
 FUSED_PHASES = ("fused_local.device_step", "fused_local.polish_step")

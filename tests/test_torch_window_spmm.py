@@ -44,14 +44,14 @@ from wavesandeigenvalues_jl_tpu_torch.ops.window_spmm import (
     TILE_ROWS, WindowSpmm, plan, window_spmm, window_spmm_ref)
 from wavesandeigenvalues_jl_tpu_torch.utils import timing
 
+from port_threads import one_thread  # noqa: F401
+
 
 def _counts(kernel):
     """(launches, plain calls) of a kernel wrapper so far."""
     return (timing.total(f"{kernel}.launches"),
             timing.total(f"{kernel}.twin_calls"))
 
-
-torch.set_num_threads(2)
 
 OMEGA = 2 * np.pi * 300.0
 #: the JAX tests' bar for each kernel against the host product
